@@ -1,0 +1,40 @@
+"""Rotation math for the SMPL body model, in PyTorch.
+
+Counterpart of ``human_pose_estimation_tpu/core/rotations.py`` (``skew``
+and ``rodrigues``). The Rodrigues angle keeps the reference's
+``norm(theta + 1e-8)`` quirk — the epsilon is added to each component
+before the norm — the JAX package's ``eps_mode='reference'``, the only
+mode its body model uses.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["skew", "rodrigues"]
+
+
+def skew(vec: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (..., 3, 3) cross-product matrices:
+    ``skew(v) @ u == cross(v, u)``."""
+    x, y, z = vec.unbind(-1)
+    zero = torch.zeros_like(x)
+    return torch.stack(
+        [
+            torch.stack([zero, -z, y], dim=-1),
+            torch.stack([z, zero, -x], dim=-1),
+            torch.stack([-y, x, zero], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def rodrigues(theta: torch.Tensor) -> torch.Tensor:
+    """Axis-angle (..., 3) -> rotation matrices (..., 3, 3), with the
+    angle computed as ``norm(theta + 1e-8)``."""
+    angle = torch.linalg.vector_norm(theta + 1e-8, dim=-1, keepdim=True)
+    axis = theta / angle
+    cos = torch.cos(angle)[..., None]
+    sin = torch.sin(angle)[..., None]
+    outer = axis[..., :, None] * axis[..., None, :]
+    eye = torch.eye(3, dtype=theta.dtype, device=theta.device)
+    return cos * eye + (1.0 - cos) * outer + sin * skew(axis)

@@ -1,0 +1,137 @@
+"""Inference: batched HMR prediction (counterpart of
+``human_pose_estimation_tpu/infer/predictor.py``).
+
+Pads partial batches to a fixed batch size, ships uint8 images to the
+device (4x less host->device traffic than f32) and normalizes them there,
+runs encoder -> 3x IEF -> SMPL on the last stage, and returns the wanted
+outputs. Restoring from a checkpoint, data-parallel serving and the int8
+encoder are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..core.smpl import load_model
+from ..models.hmr import HMR
+
+
+class Predictor:
+    """Serves (verts, cams, joints, theta, kp2d) for image batches."""
+
+    def __init__(
+        self,
+        config: Config,
+        smpl=None,
+        variables=None,
+        mean_theta=None,
+        batch_size: Optional[int] = None,
+        data_parallel: bool = False,
+        outputs: Optional[Tuple[str, ...]] = None,
+        encoder_int8: bool = False,
+        calibration_images=None,
+        device=None,
+    ):
+        """variables: the state dict of models.hmr.HMR (from training, or
+        from the JAX package through models/port_jax.py); mean_theta: the
+        (1, 85) initial estimate. outputs: restrict the returned keys.
+        device: ``cuda`` unless the caller asks for the CPU."""
+        if variables is None or mean_theta is None:
+            raise NotImplementedError(
+                "restoring from a checkpoint is not ported yet; pass variables and mean_theta"
+            )
+        if data_parallel:
+            raise NotImplementedError("data-parallel serving is not ported yet")
+        if encoder_int8 or config.encoder_int8 or calibration_images is not None:
+            raise NotImplementedError("the int8 encoder is not ported yet")
+        self.config = config
+        self.batch_size = batch_size or config.batch_size
+        self.outputs = tuple(outputs) if outputs else None
+        self.smpl = smpl if smpl is not None else load_model(config.smpl_model_path)
+        stage_sizes = None
+        if config.encoder_stage_sizes:  # shallow-encoder override (smoke runs, tests)
+            stage_sizes = tuple(int(x) for x in config.encoder_stage_sizes.split(","))
+        self.hmr = HMR(
+            self.smpl,
+            num_stage=config.num_stage,
+            joint_type=config.joint_type,
+            encoder_dtype=config.encoder_dtype,
+            encoder_stage_sizes=stage_sizes,
+            encoder_depth=config.encoder_depth,
+            device=device,
+        )
+        self.hmr.load_state_dict(variables)
+        self.device = self.hmr.device
+        self.mean_theta = torch.as_tensor(mean_theta, dtype=torch.float32).reshape(1, -1).to(self.device)
+
+    @torch.inference_mode()
+    def _predict_impl(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        stages = self.hmr(self._normalize(images), self.mean_theta, smpl_stages="last")
+        last = stages[-1]
+        out = {
+            "generated_verts": last.verts,
+            "generated_cams": last.cam,
+            "generated_joints": last.joints3d,
+            "theta": last.theta,
+            "kp2d": last.kp2d,
+        }
+        if self.outputs is not None:
+            out = {k: out[k] for k in self.outputs}
+        return out
+
+    @staticmethod
+    def _normalize(images: torch.Tensor) -> torch.Tensor:
+        if images.dtype == torch.uint8:
+            return images.float() / 127.5 - 1.0
+        return images
+
+    def predict_async(self, images):
+        """Enqueue ONE padded batch (N <= batch_size) on the device without
+        waiting; returns a handle for ``predict_fetch``. CUDA work is
+        asynchronous, so the caller can prepare the next batch meanwhile."""
+        images = np.asarray(images)
+        if images.dtype != np.uint8:
+            images = images.astype(np.float32)
+        n = images.shape[0]
+        b = self.batch_size
+        if n > b:
+            raise ValueError(f"predict_async takes at most the batch size ({b}); got {n}")
+        if n < b:
+            images = np.concatenate(
+                [images, np.zeros((b - n, *images.shape[1:]), images.dtype)], axis=0
+            )
+        host = torch.from_numpy(np.ascontiguousarray(images))
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        device_images = host.to(self.device, non_blocking=True)
+        return self._predict_impl(device_images), n
+
+    def predict_fetch(self, handle) -> Dict[str, np.ndarray]:
+        """Wait for a ``predict_async`` handle; numpy outputs for its N rows."""
+        out, n = handle
+        return {k: v[:n].cpu().numpy() for k, v in out.items()}
+
+    def predict(self, images) -> Dict[str, np.ndarray]:
+        """Predict on a (N, H, W, 3) batch — float in [-1, 1], or uint8
+        (normalized on the device). Pads N up to the batch size; larger
+        requests are cut into batches, all enqueued before any is fetched."""
+        images = np.asarray(images)
+        if images.dtype != np.uint8:
+            images = images.astype(np.float32)
+        n = images.shape[0]
+        b = self.batch_size
+        handles = [self.predict_async(images[s : s + b]) for s in range(0, n, b)] or [
+            self.predict_async(images)  # n == 0
+        ]
+        parts = [self.predict_fetch(h) for h in handles]
+        if len(parts) == 1:
+            return parts[0]
+        return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+    def predict_single_image(self, image) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(verts, cams, joints) for one (H, W, 3) image."""
+        res = self.predict(np.asarray(image)[None])
+        return res["generated_verts"], res["generated_cams"], res["generated_joints"]

@@ -1,0 +1,167 @@
+"""HMR: ResNet encoder + iterative error feedback (IEF) regression to
+SMPL parameters + body model + weak-perspective projection.
+
+Counterpart of ``human_pose_estimation_tpu/models/hmr.py`` (the forward of
+``HMR.__call__``). Kept from the reference:
+
+* theta layout [cam(3) | pose(72) | shape(10)];
+* rotations returned without the root joint, for the critic;
+* ``smpl_stages='last'`` runs the body model on the final stage only
+  (the serving path); ``'all'`` on every stage (evaluation).
+
+``encoder_dtype='bfloat16'`` runs the encoder and the regressor under
+``torch.autocast``; parameters, BN statistics and the body model stay
+f32. The module holds its parameters (as the Flax ``variables`` tree);
+the mean theta is passed to ``forward``, as the training state owns it.
+This slice is the forward path: the module stays in eval mode, and the
+int8 encoder (``encoder_qparams``) is not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from .. import resolve_device
+from ..core.projection import orth_project
+from ..core.smpl import SMPLModel, smpl_forward
+from .regressor import IEFRegressor
+from .resnet import ResNet, make_resnet
+
+NUM_CAM = 3
+NUM_POSE = 72
+NUM_SHAPE = 10
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass
+class StageOutput:
+    """Per-IEF-stage outputs (N batch, V verts, J joints). Stages whose
+    body model was skipped hold theta/cam/pose/shape only."""
+
+    theta: torch.Tensor  # (N, 85)
+    cam: torch.Tensor  # (N, 3)
+    pose: torch.Tensor  # (N, 72)
+    shape: torch.Tensor  # (N, 10)
+    verts: Optional[torch.Tensor] = None  # (N, V, 3)
+    joints3d: Optional[torch.Tensor] = None  # (N, J, 3)
+    rotations: Optional[torch.Tensor] = None  # (N, 23, 3, 3), root excluded
+    kp2d: Optional[torch.Tensor] = None  # (N, J, 2) projected, in [-1, 1]
+
+
+def split_theta(theta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """[cam | pose | shape] split."""
+    return (
+        theta[..., :NUM_CAM],
+        theta[..., NUM_CAM : NUM_CAM + NUM_POSE],
+        theta[..., NUM_CAM + NUM_POSE :],
+    )
+
+
+def _init_encoder(encoder: ResNet, generator: torch.Generator) -> None:
+    """Flax's defaults: lecun-normal (truncated) conv kernels, zero biases,
+    BN scale 1 / bias 0 / mean 0 / var 1."""
+    for m in encoder.modules():
+        if isinstance(m, nn.Conv2d):
+            fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+            # the truncated normal's std correction of variance_scaling
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+
+
+class HMR(nn.Module):
+    def __init__(
+        self,
+        smpl: SMPLModel,
+        num_stage: int = 3,
+        joint_type: str = "lsp",
+        encoder_dtype: str = "float32",
+        encoder_stage_sizes=None,
+        encoder_depth: int = 50,
+        device=None,
+        seed: int = 0,
+    ):
+        """Builds the encoder and regressor on ``device`` (``cuda`` unless
+        the caller asks for the CPU) with weights from a seeded init; load
+        trained or bridged weights with ``load_state_dict``.
+        encoder_stage_sizes: a shallow encoder for tests, e.g. (1, 1, 1, 1).
+        """
+        super().__init__()
+        if encoder_dtype not in _DTYPES:
+            raise ValueError(f"encoder_dtype must be one of {sorted(_DTYPES)}")
+        self.device = resolve_device(device)
+        self.smpl = smpl.to(self.device)
+        self.num_stage = num_stage
+        self.joint_type = joint_type
+        self.encoder_dtype = _DTYPES[encoder_dtype]
+        if encoder_stage_sizes is None:
+            self.encoder = make_resnet(encoder_depth)
+        else:
+            self.encoder = ResNet(tuple(encoder_stage_sizes))
+        self.regressor = IEFRegressor(feature_dim=self.encoder.feature_dim)
+        gen = torch.Generator().manual_seed(seed)
+        _init_encoder(self.encoder, gen)
+        self.regressor.reset_parameters(gen)
+        self.to(self.device)
+        self.eval()
+
+    def _autocast(self):
+        return torch.autocast(
+            device_type=self.device.type,
+            dtype=torch.bfloat16,
+            enabled=self.encoder_dtype == torch.bfloat16,
+        )
+
+    def forward(
+        self,
+        images: torch.Tensor,
+        mean_theta: torch.Tensor,
+        smpl_stages: str = "all",
+        encoder_qparams=None,
+    ) -> List[StageOutput]:
+        """images (N, H, W, 3) in [-1, 1]; mean_theta (1, 85) initial
+        estimate. Returns one StageOutput per IEF stage."""
+        if encoder_qparams is not None:
+            raise NotImplementedError("the int8 encoder is not ported yet")
+        if self.training:
+            raise NotImplementedError(
+                "the training-mode forward (batch statistics, dropout) comes "
+                "with the training slice"
+            )
+        if smpl_stages not in ("all", "last"):
+            raise ValueError("smpl_stages must be 'all' or 'last'")
+        n = images.shape[0]
+        with self._autocast():
+            features = self.encoder(images)
+        theta = mean_theta.float().expand(n, -1)
+        stages: List[StageOutput] = []
+        for stage in range(self.num_stage):
+            last = stage == self.num_stage - 1
+            with self._autocast():
+                delta = self.regressor(features, theta)
+            theta = theta + delta
+            cam, pose, shape = split_theta(theta)
+            if smpl_stages == "all" or last:
+                out = smpl_forward(self.smpl, shape, pose, joint_type=self.joint_type)
+                stages.append(
+                    StageOutput(
+                        theta=theta,
+                        cam=cam,
+                        pose=pose,
+                        shape=shape,
+                        verts=out.verts,
+                        joints3d=out.joints,
+                        rotations=out.rotations[:, 1:],
+                        kp2d=orth_project(out.joints, cam),
+                    )
+                )
+            else:
+                stages.append(StageOutput(theta=theta, cam=cam, pose=pose, shape=shape))
+        return stages
