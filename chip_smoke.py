@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout, holds it
-against its plain PyTorch version at the evaluation shape, then drives the
-port's forward path at full width: the serving ``Predictor`` and the
-evaluation ``make_val_step``. Every phase prints one line; any failure
-raises and the script exits non-zero. The line before the last is a JSON
-object with one entry per ported kernel; the last line is
-``{"ok": true, "device": {...}}``.
+Builds the port's CUDA kernels from the sources in this checkout (one
+``nvcc`` per source, in parallel), holds each against its plain PyTorch
+version at the shape of the main path (K1, the value-only chamfer; K2/K3,
+the value-and-gradient chamfer and its gradient-only launch; K4, K2 with
+f32 index carriers), then drives the port's main path at full width: the
+serving ``Predictor``, the evaluation ``make_val_step`` and the training
+``make_train_step``, counting each kernel's launches over the three; and
+last holds one f32 training step on the card against the same step on the
+CPU. Every phase prints one line; any failure raises and the script exits
+non-zero. The line before the last is a JSON object with one entry per
+ported kernel; the last line is ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package. Needs one CUDA device and
 exits non-zero without one.
@@ -64,9 +68,12 @@ def _ptxas_summary(log: str) -> str:
 
     parts, name = [], None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '_Z\w*?(gt_to_pred_kernel|pred_to_gt_kernel)", line)
+        m = re.search(
+            r"Compiling entry function '_Z\w*?(gt_to_pred_kernel|pred_to_gt_kernel|assign_kernel|vertex_kernel)"
+            r"(I[if](?:Lb([01]))?)?", line,
+        )
         if m:
-            name = m.group(1)
+            name = m.group(1) + (f"<{m.group(2)[1]}{',' + m.group(3) if m.group(3) else ''}>" if m.group(2) else "")
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
             spills = m.group(1)
@@ -77,10 +84,15 @@ def _ptxas_summary(log: str) -> str:
     return "; ".join(parts) or "ptxas output not found"
 
 
-def _device_breakdown(torch, fn, wall_ms: float) -> str:
+K1_KERNELS = ("gt_to_pred_kernel", "pred_to_gt_kernel")
+K2_KERNELS = ("assign_kernel", "vertex_kernel")
+
+
+def _device_breakdown(torch, fn, wall_ms: float, label: str = "K1", names=K1_KERNELS) -> str:
     """Summed CUDA kernel time of one call of ``fn`` under torch.profiler,
     against ``wall_ms`` (the same call timed without the profiler): the
-    device's busy share, the three largest kernels and K1's share."""
+    device's busy share, the three largest kernels and the share of the
+    kernels whose names contain one of ``names``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -95,12 +107,13 @@ def _device_breakdown(torch, fn, wall_ms: float) -> str:
     if not rows:
         return "device time not measured (the profiler saw no CUDA kernel)"
     busy = sum(r[1] for r in rows)
-    k1 = sum(r[1] for r in rows if "gt_to_pred_kernel" in r[0] or "pred_to_gt_kernel" in r[0])
+    ours = sum(r[1] for r in rows if any(k in r[0] for k in names))
     top = sorted(rows, key=lambda r: -r[1])[:3]
     tops = ", ".join(f"{r[0][:48]} {r[1]:.3f} ms x{r[2]}" for r in top)
     return (
         f"device busy {busy:.3f} ms of {wall_ms:.3f} ms wall ({100 * busy / wall_ms:.1f}%), "
-        f"{sum(r[2] for r in rows)} kernel launches, K1 {k1:.3f} ms; top: {tops}"
+        f"{sum(r[2] for r in rows)} kernel launches, {label} {ours:.3f} ms "
+        f"({100 * ours / wall_ms:.1f}% of the wall); top: {tops}"
     )
 
 
@@ -117,12 +130,12 @@ def _eval_silhouettes(gen, n, p, counts, img_size):
     return pts, mask
 
 
-def phase_kernel(torch, cc, card):
-    """K1 against its plain version on the card at the evaluation shape."""
+def _kernel_inputs(torch):
+    """The kernels' shared test inputs at the training / evaluation shape:
+    five prefix masks of 2k-9k pixels, an empty mask, a non-prefix mask (a
+    prefix, an island and a lone last pixel) and an exact tie."""
     n, p, v, img = 8, 16384, 6890, 224
     gen = torch.Generator().manual_seed(0)
-    # five prefix masks of 2k-9k pixels, then an empty mask, a non-prefix
-    # mask (a prefix, an island and a lone last pixel) and an exact tie
     counts = [2048, 4100, 9000, 3100, 5200, 0, 0, 4000]
     gt, mask = _eval_silhouettes(gen, n, p, counts, img)
     mask[6, :17] = 1.0
@@ -135,8 +148,37 @@ def phase_kernel(torch, cc, card):
     gt[7, 0] = torch.tensor([-100.0, -100.0])
     pred[7, 0] = torch.tensor([-97.0, -96.0])
     pred[7, 1] = torch.tensor([-95.0, -100.0])
-    gt, mask, pred = gt.cuda(), mask.cuda(), pred.cuda()
+    return gt.cuda(), mask.cuda(), pred.cuda()
 
+
+def _bound(torch, cc, gt, mask, pred, out_bytes, in_extra=0):
+    """(bound_ms, 'operations' | 'bytes'): 7 f32 operations per (valid
+    pixel, vertex) pair (5 for the shared distance, one min per
+    direction) over the f32 peak, against each input read once and each
+    output written once over the memory rate."""
+    pairs = float(mask.sum()) * pred.shape[1]
+    ops = 7 * pairs
+    nbytes = gt.numel() * 4 + mask.numel() * 4 + pred.numel() * 4 + in_extra + out_bytes
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _pred_to_gt_library_ms(torch, cc, gt, mask, pred, iters, with_indices):
+    """The library yardstick for the pred->gt half: one ``torch.cdist``
+    and a min over the active pixels (with the nearest pixel's index where
+    the kernel needs it), masked pixels moved far away."""
+    pmax = int(cc.last_active(mask).max())
+    gt_far = torch.where(mask[:, :pmax, None] > 0, gt[:, :pmax], torch.full_like(gt[:, :pmax], 1e6))
+    if with_indices:
+        return _time_cuda(lambda: torch.cdist(pred, gt_far).min(dim=2), iters=iters)
+    return _time_cuda(lambda: torch.cdist(pred, gt_far).amin(dim=2), iters=iters)
+
+
+def phase_kernel(torch, cc, card):
+    """K1 against its plain version on the card at the evaluation shape."""
+    gt, mask, pred = _kernel_inputs(torch)
+    n, p, _ = gt.shape
+    v = pred.shape[1]
     out = cc.chamfer_forward(gt, mask, pred)
     ref = cc.chamfer_forward_reference(gt, mask, pred)
     torch.cuda.synchronize()
@@ -160,22 +202,13 @@ def phase_kernel(torch, cc, card):
 
     ms = _time_cuda(lambda: cc.chamfer_forward(gt, mask, pred), iters=100)
     plain_ms = _time_cuda(lambda: cc.chamfer_forward_reference(gt, mask, pred), iters=5, warmup=1)
-    # yardstick: one library call for the pred->gt half (cdist + min over
-    # the active pixels, masked pixels moved far away)
-    pmax = int(cc.last_active(mask).max())
-    gt_far = torch.where(mask[:, :pmax, None] > 0, gt[:, :pmax], torch.full_like(gt[:, :pmax], 1e6))
-    library_ms = _time_cuda(lambda: torch.cdist(pred, gt_far).amin(dim=2), iters=20)
-
+    library_ms = _pred_to_gt_library_ms(torch, cc, gt, mask, pred, iters=20, with_indices=False)
     valid = float(mask.sum())
-    pairs = valid * v  # (valid pixel, vertex) pairs the function needs
-    ops = 7 * pairs  # 5 for the shared distance, one min per direction
-    nbytes = gt.numel() * 4 + mask.numel() * 4 + pred.numel() * 4 + n * 4
-    bound_s = max(ops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES)
-    bound_by = "operations" if ops / PEAK_F32_FLOPS >= nbytes / PEAK_HBM_BYTES else "bytes"
+    bound_ms, bound_by = _bound(torch, cc, gt, mask, pred, out_bytes=n * 4)
     print(
         f"[kernel] K1 chamfer_fwd N={n} P={p} V={v} valid={int(valid)}: "
         f"max_abs_err={float(err.max()):.3e} (rtol {rtol}) ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} cdist_ms={library_ms:.4f} bound_ms={bound_s * 1e3:.4f} "
+        f"plain_ms={plain_ms:.4f} cdist_ms={library_ms:.4f} bound_ms={bound_ms:.4f} "
         f"({bound_by}) on {card}",
         flush=True,
     )
@@ -187,10 +220,93 @@ def phase_kernel(torch, cc, card):
         "max_abs_err": float(err.max()),
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound_s * 1e3,
+        "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
     }
+
+
+def phase_kernel_bwd(torch, cc, card):
+    """K2 (value and gradient), K3 (gradient only) and K4 (K2 with f32
+    index carriers) against their plain version on the card at the
+    training shape: value rtol 1e-5, L1 gradient exactly equal, L2
+    gradient atol 1e-6, vmin bit-equal, two runs bit-identical, the tie's
+    gradient on vertex 0; then their times."""
+    gt, mask, pred = _kernel_inputs(torch)
+    n = gt.shape[0]
+    v = pred.shape[1]
+    ct = torch.linspace(0.5, 2.0, n, device="cuda")
+    ref = cc.chamfer_bwd_parts_reference(gt, mask, pred)
+    ref_value, ref_grad = cc.chamfer_value_and_grad_reference(gt, mask, pred)
+    ref_k3 = cc.chamfer_grad_reference(gt, mask, pred, ct)
+    variants = (
+        ("chamfer_value_and_grad", "K2", True, False, "human_pose_estimation_tpu/ops/pallas_chamfer.py:186"),
+        ("chamfer_grad", "K3", False, False, "human_pose_estimation_tpu/ops/pallas_chamfer.py:186"),
+        ("chamfer_value_and_grad_f32idx", "K4", True, True, "benchmarks/chamfer_variant_bench.py:45"),
+    )
+    entries, lines = [], []
+    for name, tag, with_value, f32_index, replaces in variants:
+        out = cc.chamfer_bwd_parts(gt, mask, pred, with_value, f32_index)
+        again = cc.chamfer_bwd_parts(gt, mask, pred, with_value, f32_index)
+        torch.cuda.synchronize()
+        for a, b, field in zip(out, again, out._fields):
+            if a is not None and not torch.equal(a, b):
+                raise AssertionError(f"{tag}: two runs differ in {field}")
+        if not torch.equal(out.l1_grad, ref.l1_grad):
+            err = float((out.l1_grad - ref.l1_grad).abs().max())
+            raise AssertionError(f"{tag}: the L1 gradient differs from the plain version by {err}")
+        l2_err = float((out.l2_grad - ref.l2_grad).abs().max())
+        if not l2_err <= 1e-6:
+            raise AssertionError(f"{tag}: the L2 gradient differs from the plain version by {l2_err}")
+        if not torch.equal(out.vmin, ref.vmin):
+            raise AssertionError(f"{tag}: vmin is not bit-equal to the plain version")
+        if out.l1_grad[7, 0].tolist() != [1.0, 1.0] or out.l1_grad[7, 1].tolist() != [0.0, 0.0]:
+            raise AssertionError(f"{tag}: the tie's L1 gradient went to {out.l1_grad[7, :2].tolist()}, not vertex 0")
+        if with_value:
+            value, grad = cc.chamfer_value_and_grad(gt, mask, pred, f32_index=f32_index)
+            bad = (value - ref_value).abs() > 1e-5 * ref_value.abs()
+            if bool(bad.any()) or float(value[5]) != 0.0:
+                raise AssertionError(f"{tag}: value {value.tolist()} vs plain {ref_value.tolist()}")
+            if float(grad[5].abs().max()) != 0.0:
+                raise AssertionError(f"{tag}: an empty mask has a nonzero gradient")
+            max_err = max(float((value - ref_value).abs().max()), float((grad - ref_grad).abs().max()))
+            fn = lambda f=f32_index: cc.chamfer_value_and_grad(gt, mask, pred, f32_index=f)
+            plain = lambda: cc.chamfer_value_and_grad_reference(gt, mask, pred)
+            out_bytes = n * 4 + pred.numel() * 4
+            in_extra = 0
+        else:
+            grad = cc.chamfer_grad(gt, mask, pred, ct)
+            max_err = float((grad - ref_k3).abs().max())
+            fn = lambda: cc.chamfer_grad(gt, mask, pred, ct)
+            plain = lambda: cc.chamfer_grad_reference(gt, mask, pred, ct)
+            out_bytes = pred.numel() * 4
+            in_extra = n * 4  # the cotangent
+        ms = _time_cuda(fn, iters=100)
+        plain_ms = _time_cuda(plain, iters=3, warmup=1)
+        library_ms = _pred_to_gt_library_ms(torch, cc, gt, mask, pred, iters=20, with_indices=True)
+        bound_ms, bound_by = _bound(torch, cc, gt, mask, pred, out_bytes, in_extra)
+        lines.append(
+            f"{tag} {name}: max_abs_err={max_err:.3e} l2_err={l2_err:.3e} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} cdist_min_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})"
+        )
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "human_pose_estimation_tpu_torch/csrc/chamfer_bwd.cu",
+            "replaces": replaces,
+            "max_abs_err": max_err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": library_ms,
+        })
+    print(
+        f"[kernel] chamfer_bwd N={n} P={gt.shape[1]} V={v} valid={int(mask.sum())}: L1 gradient exact, "
+        f"vmin bit-equal, repeatable, tie on vertex 0, value rtol 1e-5 | " + " | ".join(lines) + f" | on {card}",
+        flush=True,
+    )
+    return entries
 
 
 def _seeded_hmr(smpl, encoder_dtype, device, seed=0):
@@ -359,6 +475,191 @@ def phase_eval(torch, cc, card, smpl, mean_theta, num_batches=10):
     return wall_ms
 
 
+def _train_batches(torch, smpl, n, p, img, count, seed, device):
+    """``count`` (GenBatch, MocapBatch) pairs: images, silhouettes of
+    2k-9k pixels (mean ~4.5k; capped at ``p``), keypoints, and 3n mocap
+    samples posed by the port's body model from seeded poses and shapes."""
+    from human_pose_estimation_tpu_torch.core.smpl import smpl_forward
+    from human_pose_estimation_tpu_torch.train.step import GenBatch, MocapBatch
+
+    gen = torch.Generator().manual_seed(seed)
+    body = smpl.to(device)
+    out = []
+    for _ in range(count):
+        counts = torch.randint(2000, 6200, (n,), generator=gen).clamp_max(p).tolist()
+        counts[0] = min(p, int(torch.randint(6200, 9200, (1,), generator=gen)))
+        pts, mask = _eval_silhouettes(gen, n, p, counts, img)
+        kp = torch.rand(n, 19, 3, generator=gen) * 2 - 1
+        kp[..., 2] = (torch.rand(n, 19, generator=gen) > 0.2).float()
+        images = torch.rand(n, img, img, 3, generator=gen) * 2 - 1
+        pose = torch.randn(3 * n, 72, generator=gen) * 0.2
+        shape = torch.randn(3 * n, 10, generator=gen) * 0.4
+        with torch.no_grad():
+            mocap = smpl_forward(body, shape.to(device), pose.to(device), joint_type="cocoplus")
+        out.append((
+            GenBatch(images.to(device), pts.to(device), mask.to(device), kp.to(device)),
+            MocapBatch(mocap.joints, shape.to(device), mocap.rotations[:, 1:]),
+        ))
+    return out
+
+
+def _param_groups(state):
+    return {
+        "encoder": list(state.hmr.encoder.parameters()),
+        "regressor": list(state.hmr.regressor.parameters()),
+        "mean_theta": [state.mean_theta],
+        "critic": list(state.critic.parameters()),
+    }
+
+
+def phase_train(torch, cc, card, smpl, mean_theta, num_steps=10):
+    """The training path: make_train_step at full width (ResNet-50, 224 px,
+    bf16 encoder, batch 8, P=16384 silhouettes of 2k-9k pixels, 6890
+    vertices, mesh loss on all three IEF stages, gradient penalty on),
+    one warm-up step and ``num_steps`` timed steps."""
+    import numpy as np
+
+    from human_pose_estimation_tpu_torch.config import Config
+    from human_pose_estimation_tpu_torch.train.state import create_train_state
+    from human_pose_estimation_tpu_torch.train.step import make_train_step
+
+    n, img, p = 8, 224, 16384
+    cfg = Config(
+        batch_size=n, img_size=img, encoder_dtype="bfloat16", use_mesh_repro_loss=True,
+        mr_metric_stages="all", max_silhouette_points=p, use_gradient_penalty=True,
+    )
+    state = create_train_state(smpl, mean_theta, cfg, device="cuda", seed=0)
+    step = make_train_step(cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batches = _train_batches(torch, smpl, n, p, img, num_steps + 2, seed=2, device="cuda")
+    start = {k: [t.detach().clone() for t in ts] for k, ts in _param_groups(state).items()}
+
+    def run(batch, mocap):
+        k1, k2 = cc.LAUNCHES, cc.VALUE_GRAD_LAUNCHES
+        metrics = step(state, batch, mocap, gen)
+        torch.cuda.synchronize()
+        if cc.VALUE_GRAD_LAUNCHES - k2 != 3 or cc.LAUNCHES != k1:
+            raise AssertionError(
+                f"a training step launched K2 {cc.VALUE_GRAD_LAUNCHES - k2} times (not 3) "
+                f"and K1 {cc.LAUNCHES - k1} times (not 0)"
+            )
+        return metrics
+
+    run(*batches[0])  # warm-up: cuDNN plans, allocator
+    times, metrics = [], []
+    for batch, mocap in batches[1 : num_steps + 1]:
+        t0 = time.perf_counter()
+        metrics.append(run(batch, mocap))
+        times.append(time.perf_counter() - t0)
+    for m in metrics:
+        for field, value in vars(m).items():
+            if not bool(torch.isfinite(value).all()):
+                raise AssertionError(f"training metric {field} is not finite: {value}")
+    for k, ts in _param_groups(state).items():
+        if not any(bool((a != b).any()) for a, b in zip(ts, start[k])):
+            raise AssertionError(f"training never moved the {k} parameters")
+    wall_ms = 1e3 * float(np.median(times))
+    breakdown = _device_breakdown(torch, lambda: run(*batches[-1]), wall_ms, "K2", K2_KERNELS)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    first, last = metrics[0], metrics[-1]
+    print(
+        f"[train] make_train_step ResNet-50 {img}px bf16 batch {n} P={p} mr on 3 stages, GP on, mocap {3 * n}: "
+        f"{wall_ms:.2f} ms/step median of {num_steps} (min {1e3 * min(times):.2f}, max {1e3 * max(times):.2f}), "
+        f"K2 launches 3 per step, K1 0, losses finite, all 4 parameter groups moved | "
+        f"step 1 -> {num_steps}: generator_loss {float(first.generator_loss):.4f} -> {float(last.generator_loss):.4f}, "
+        f"critic_loss {float(first.critic_loss):.4f} -> {float(last.critic_loss):.4f}, "
+        f"mr[-1] {float(first.mr_losses[-1]):.5f} -> {float(last.mr_losses[-1]):.5f} | "
+        f"peak memory {peak_gib:.2f} GiB | one step: {breakdown} | on {card}",
+        flush=True,
+    )
+    return wall_ms
+
+
+def _parity_step(torch, smpl, mean_theta, cfg, batch, mocap, device, dtype):
+    """One make_train_step from the seeded state in ``dtype`` on ``device``
+    with dropout rate 0, the GP uniforms from a fixed CPU generator, and
+    SGD with rate 1 (so that before - after is the gradient): (metrics,
+    gradients), both on the CPU in f64."""
+    from torch.optim.lr_scheduler import LambdaLR
+
+    from human_pose_estimation_tpu_torch.train import step as tstep
+    from human_pose_estimation_tpu_torch.train.state import create_train_state
+
+    def uniforms(fake_joints, fake_shapes, fake_rs, generator):
+        g = torch.Generator().manual_seed(7)
+        return [torch.rand(t.shape, generator=g).to(t.device, t.dtype) for t in (fake_joints, fake_shapes, fake_rs)]
+
+    state = create_train_state(smpl.to("cpu", dtype), mean_theta, cfg, device=device, seed=1)
+    state.hmr.to(dtype)
+    state.critic.to(dtype)
+    state.mean_theta.data = state.mean_theta.data.to(dtype)
+    state.hmr.regressor.dropout_rate = 0.0
+    state.gen_opt = torch.optim.SGD(state.gen_params(), lr=1.0)
+    state.critic_opt = torch.optim.SGD(list(state.critic.parameters()), lr=1.0)
+    state.gen_sched = LambdaLR(state.gen_opt, lambda count: 1.0)
+    state.critic_sched = LambdaLR(state.critic_opt, lambda count: 1.0)
+    params = {f"{k}.{i}": t for k, ts in _param_groups(state).items() for i, t in enumerate(ts)}
+    before = {k: t.detach().clone() for k, t in params.items()}
+    to = lambda b: type(b)(*(t.to(device, dtype) for t in b))
+    drawn = tstep._gp_uniforms
+    tstep._gp_uniforms = uniforms
+    try:
+        metrics = tstep.make_train_step(cfg, device=device)(
+            state, to(batch), to(mocap), torch.Generator(device=device).manual_seed(0)
+        )
+    finally:
+        tstep._gp_uniforms = drawn
+    grads = {k: (before[k] - t.detach()).cpu().double() for k, t in params.items()}
+    return {f: v.cpu().double() for f, v in vars(metrics).items()}, grads
+
+
+def _worst(out, ref):
+    """(StepMetrics max error relative to each field's largest magnitude,
+    gradient max error relative to each tensor's largest magnitude, with a
+    floor of 1e-5 of the largest gradient of all: the conv biases before a
+    BN have an exact zero gradient, of which both sides hold only rounding)."""
+    (m_out, g_out), (m_ref, g_ref) = out, ref
+    worst_m = max(float((m_out[f] - r).abs().max()) / max(float(r.abs().max()), 1e-30) for f, r in m_ref.items())
+    scale = max(float(g.abs().max()) for g in g_ref.values())
+    worst_g, leaf = max(
+        (float((g_out[k] - r).abs().max()) / max(float(r.abs().max()), 1e-5 * scale), k) for k, r in g_ref.items()
+    )
+    return worst_m, worst_g, leaf
+
+
+def phase_train_parity(torch, card, smpl, mean_theta):
+    """The card against the CPU: one make_train_step in f64 from the same
+    seeded weights (dropout rate 0, the same GP uniforms, SGD with rate 1
+    so that before - after is the gradient, the penalty's double backward
+    included), ResNet-50 at 224 px, batch 2, a P=2048 silhouette budget;
+    the card runs K2, the CPU its plain version. StepMetrics and gradients
+    within 1e-5 of each field's / tensor's largest magnitude. The step is
+    compared in f64 because in f32 it is ill-conditioned on either device:
+    the same f32 step on the card is also run, and its distance from the
+    f64 step is printed (not checked)."""
+    from human_pose_estimation_tpu_torch.config import Config
+
+    n, img, p = 2, 224, 2048
+    cfg = Config(batch_size=n, img_size=img, encoder_dtype="float32", use_mesh_repro_loss=True)
+    (batch, mocap), = _train_batches(torch, smpl, n, p, img, 1, seed=3, device="cpu")
+    f64, f32 = torch.float64, torch.float32
+    cpu64 = _parity_step(torch, smpl, mean_theta, cfg, batch, mocap, "cpu", f64)
+    gpu64 = _parity_step(torch, smpl, mean_theta, cfg, batch, mocap, "cuda", f64)
+    gpu32 = _parity_step(torch, smpl, mean_theta, cfg, batch, mocap, "cuda", f32)
+    worst_m, worst_g, leaf = _worst(gpu64, cpu64)
+    if not (worst_m <= 1e-5 and worst_g <= 1e-5):
+        raise AssertionError(
+            f"f64 train step, card vs CPU: StepMetrics {worst_m:.2e}, gradients {worst_g:.2e} ({leaf}); limit 1e-5"
+        )
+    m32, g32, leaf32 = _worst(gpu32, cpu64)
+    print(
+        f"[train-parity] make_train_step ResNet-50 {img}px batch {n} P={p}, f64, card (K2) vs CPU (plain "
+        f"version): StepMetrics max rel {worst_m:.2e}, gradients max rel {worst_g:.2e} ({leaf}); limit 1e-5 | "
+        f"the f32 step on the card vs the f64 step: StepMetrics {m32:.2e}, gradients {g32:.2e} ({leaf32}) | on {card}",
+        flush=True,
+    )
+
+
 def main() -> int:
     try:
         import torch
@@ -382,30 +683,38 @@ def main() -> int:
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} | {kind} | {card}", flush=True)
 
     t0 = time.perf_counter()
-    cc.build()
-    built = cc.BUILD_SECONDS
+    cc.build_all()  # one nvcc per source, started together
+    built = ", ".join(f"{k}.cu {v:.2f} s" for k, v in sorted(cc.BUILD_SECONDS.items()))
     print(
-        f"[build] chamfer_fwd.cu: nvcc {built if built is None else round(built, 2)} s, "
-        f"load {time.perf_counter() - t0:.2f} s | {_ptxas_summary(cc.BUILD_LOG)}",
+        f"[build] nvcc (in parallel) {built or 'cached'}, wall {time.perf_counter() - t0:.2f} s | "
+        f"{_ptxas_summary(chr(10).join(cc.BUILD_LOG.values()))}",
         flush=True,
     )
 
     k1 = phase_kernel(torch, cc, card)
+    k2, k3, k4 = phase_kernel_bwd(torch, cc, card)
 
     from human_pose_estimation_tpu_torch.models.port_jax import mean_theta as to_mean_theta
     from human_pose_estimation_tpu_torch.utils.assets import synthetic_mean_params, synthetic_model
 
     smpl = synthetic_model(num_verts=6890, seed=0)
     mean_theta = to_mean_theta(synthetic_mean_params())
-    cc.LAUNCHES = 0  # the main path: serving, then evaluation
+    # the main path: serving, evaluation, training
+    cc.LAUNCHES = cc.VALUE_GRAD_LAUNCHES = cc.GRAD_LAUNCHES = cc.F32IDX_LAUNCHES = 0
     phase_serving(torch, card, smpl, mean_theta)
     phase_eval(torch, cc, card, smpl, mean_theta)
+    phase_train(torch, cc, card, smpl, mean_theta)
     k1["launches"] = cc.LAUNCHES
-    if k1["launches"] == 0:
-        raise AssertionError("the main path never launched K1")
+    k2["launches"] = cc.VALUE_GRAD_LAUNCHES
+    k3["launches"] = cc.GRAD_LAUNCHES
+    k4["launches"] = cc.F32IDX_LAUNCHES
+    if k1["launches"] == 0 or k2["launches"] == 0:
+        raise AssertionError("the main path never launched K1 or K2")
+
+    phase_train_parity(torch, card, smpl, mean_theta)
 
     print(card)
-    print(json.dumps({"kernels": [k1]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 

@@ -29,6 +29,12 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in f32, or in f64 when it already is: the cast at the end of
+    an autocast region (bf16 -> f32) that keeps an f64 computation f64."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def pin_f32_numerics() -> None:
     """Full-f32 convolutions and matmuls on the card.
 

@@ -70,8 +70,8 @@ class SMPLModel:
         }
         return cls(**tensors, parents=tuple(int(p) for p in parents), faces=faces)
 
-    def to(self, device) -> "SMPLModel":
-        return dataclasses.replace(self, **{k: getattr(self, k).to(device) for k in _TENSOR_FIELDS})
+    def to(self, device, dtype=None) -> "SMPLModel":
+        return dataclasses.replace(self, **{k: getattr(self, k).to(device, dtype) for k in _TENSOR_FIELDS})
 
 
 @dataclasses.dataclass

@@ -9,6 +9,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from .. import at_least_f32
 from ..ops.kcs import NUM_BONES, NUM_KCS_JOINTS
 
 LEAKY_SLOPE = 0.2
@@ -50,4 +51,4 @@ class Critic(nn.Module):
         r = lrelu(self.rotation_dense_1(rotations.reshape(n, -1)))
         r = lrelu(self.rotation_dense_2(r))
         rot = self.rotation_dense_3(r)
-        return torch.cat([skel, shape, rot], dim=-1).float()
+        return at_least_f32(torch.cat([skel, shape, rot], dim=-1))

@@ -13,8 +13,13 @@ Counterpart of ``human_pose_estimation_tpu/models/hmr.py`` (the forward of
 ``torch.autocast``; parameters, BN statistics and the body model stay
 f32. The module holds its parameters (as the Flax ``variables`` tree);
 the mean theta is passed to ``forward``, as the training state owns it.
-This slice is the forward path: the module stays in eval mode, and the
-int8 encoder (``encoder_qparams``) is not ported.
+
+Train mode (``HMR.train()``, the JAX ``train=True``): the encoder
+normalises with batch statistics and updates its running buffers
+(``models/resnet.FlaxBatchNorm2d``), and dropout acts on the LAST IEF
+stage only (the reference quirk), with masks from the ``generator``
+passed to ``forward``. The int8 encoder (``encoder_qparams``) is not
+ported.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
-from .. import resolve_device
+from .. import at_least_f32, resolve_device
 from ..core.projection import orth_project
 from ..core.smpl import SMPLModel, smpl_forward
 from .regressor import IEFRegressor
@@ -125,27 +130,27 @@ class HMR(nn.Module):
         mean_theta: torch.Tensor,
         smpl_stages: str = "all",
         encoder_qparams=None,
+        generator: Optional[torch.Generator] = None,
     ) -> List[StageOutput]:
         """images (N, H, W, 3) in [-1, 1]; mean_theta (1, 85) initial
-        estimate. Returns one StageOutput per IEF stage."""
+        estimate. Returns one StageOutput per IEF stage. In train mode
+        ``generator`` (on the module's device) draws the dropout masks of
+        the last stage."""
         if encoder_qparams is not None:
             raise NotImplementedError("the int8 encoder is not ported yet")
-        if self.training:
-            raise NotImplementedError(
-                "the training-mode forward (batch statistics, dropout) comes "
-                "with the training slice"
-            )
         if smpl_stages not in ("all", "last"):
             raise ValueError("smpl_stages must be 'all' or 'last'")
         n = images.shape[0]
         with self._autocast():
             features = self.encoder(images)
-        theta = mean_theta.float().expand(n, -1)
+        theta = at_least_f32(mean_theta).expand(n, -1)
         stages: List[StageOutput] = []
         for stage in range(self.num_stage):
             last = stage == self.num_stage - 1
+            # reference quirk: dropout on the final IEF stage only
+            stage_train = self.training and last
             with self._autocast():
-                delta = self.regressor(features, theta)
+                delta = self.regressor(features, theta, train=stage_train, generator=generator)
             theta = theta + delta
             cam, pose, shape = split_theta(theta)
             if smpl_stages == "all" or last:

@@ -7,7 +7,11 @@ no JAX. Layout changes:
 * Conv kernel HWIO -> ``Conv2d.weight`` OIHW;
 * Dense kernel (in, out) -> ``Linear.weight`` (out, in);
 * BatchNorm scale / bias / mean / var -> weight / bias / running_mean /
-  running_var (plus a zero ``num_batches_tracked``).
+  running_var (plus a zero ``num_batches_tracked``);
+* a training state (``train_state_from_jax``): the weights as above, the
+  step, and each optax Adam state's ``mu`` / ``nu`` / ``count`` as the
+  torch Adam's ``exp_avg`` / ``exp_avg_sq`` / ``step``, with the weights'
+  transposes.
 
 Module names match the Flax names one to one (models/resnet.py), so the
 walk is generic.
@@ -19,7 +23,7 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-__all__ = ["flax_to_state_dict", "hmr_state_dict", "mean_theta"]
+__all__ = ["flax_to_state_dict", "hmr_state_dict", "mean_theta", "train_state_from_jax"]
 
 
 def _t(a) -> torch.Tensor:
@@ -48,9 +52,10 @@ def flax_to_state_dict(
         elif "scale" in node:  # BatchNorm
             out[f"{key}.weight"] = _t(node["scale"])
             out[f"{key}.bias"] = _t(node["bias"])
-            out[f"{key}.running_mean"] = _t(stats[name]["mean"])
-            out[f"{key}.running_var"] = _t(stats[name]["var"])
-            out[f"{key}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+            if name in stats:  # absent from parameter-shaped trees (Adam moments)
+                out[f"{key}.running_mean"] = _t(stats[name]["mean"])
+                out[f"{key}.running_var"] = _t(stats[name]["var"])
+                out[f"{key}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
         else:
             out.update(flax_to_state_dict(node, stats.get(name), prefix=f"{key}."))
     return out
@@ -70,3 +75,43 @@ def hmr_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
 def mean_theta(value) -> torch.Tensor:
     """The trainable mean theta as a (1, 85) f32 tensor."""
     return _t(value).reshape(1, -1)
+
+
+def _gen_tree_to_torch(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A parameter-shaped generator tree {'encoder', 'regressor',
+    'mean_theta'} -> torch names (``train.state.gen_named_params``)."""
+    out = flax_to_state_dict(tree["encoder"], prefix="encoder.")
+    out.update(flax_to_state_dict(tree["regressor"], prefix="regressor."))
+    out["mean_theta"] = mean_theta(tree["mean_theta"])
+    return out
+
+
+def _adam(opt_state, to_torch) -> Dict:
+    """The ``ScaleByAdamState`` inside an optax ``adam`` chain state."""
+    adam = next(s for s in opt_state if hasattr(s, "mu") and hasattr(s, "nu"))
+    return {
+        "step": int(np.asarray(adam.count)),
+        "exp_avg": to_torch(adam.mu),
+        "exp_avg_sq": to_torch(adam.nu),
+    }
+
+
+def train_state_from_jax(state) -> Dict:
+    """The JAX package's ``TrainState`` as numpy (``jax.tree.map(np.asarray,
+    state)``) -> the dict that ``train.state.TrainState.load_state_dict``
+    takes: ``step``, ``hmr`` (state dict), ``mean_theta``, ``critic``
+    (state dict), and ``gen_adam`` / ``critic_adam`` ({'step', 'exp_avg',
+    'exp_avg_sq'}, the moments keyed by torch parameter name)."""
+    gen = state.gen_params
+    variables = {
+        "params": {k: gen[k] for k in ("encoder", "regressor")},
+        "batch_stats": state.batch_stats,
+    }
+    return {
+        "step": int(np.asarray(state.step)),
+        "hmr": hmr_state_dict(variables),
+        "mean_theta": mean_theta(gen["mean_theta"]),
+        "critic": flax_to_state_dict(state.critic_params),
+        "gen_adam": _adam(state.gen_opt, _gen_tree_to_torch),
+        "critic_adam": _adam(state.critic_opt, flax_to_state_dict),
+    }

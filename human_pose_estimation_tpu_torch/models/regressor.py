@@ -1,13 +1,18 @@
 """IEF (iterative error feedback) SMPL-parameter regressor (counterpart of
 ``human_pose_estimation_tpu/models/regressor.py``): an MLP
 (features + 85) -> 1024 -> dropout(.5) -> 1024 -> dropout(.5) -> 85
-predicting a delta-Theta per IEF stage."""
+predicting a delta-Theta per IEF stage. Dropout acts only when the caller
+passes ``train=True`` (Flax's ``__call__(..., train)``), with a mask drawn
+from the caller's ``torch.Generator``."""
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
+
+from .. import at_least_f32
 
 THETA_DIM = 85  # [cam 3 | pose 72 | shape 10]
 FEATURE_DIM = 2048
@@ -16,15 +21,14 @@ DROPOUT_RATE = 0.5
 
 
 class IEFRegressor(nn.Module):
-    def __init__(self, feature_dim: int = FEATURE_DIM):
+    def __init__(self, feature_dim: int = FEATURE_DIM, dropout_rate: float = DROPOUT_RATE):
         """feature_dim: the encoder's output width (2048 for ResNet-50;
         shallow test encoders differ)."""
         super().__init__()
         self.fc1 = nn.Linear(feature_dim + THETA_DIM, HIDDEN_DIM)
         self.fc2 = nn.Linear(HIDDEN_DIM, HIDDEN_DIM)
         self.out = nn.Linear(HIDDEN_DIM, THETA_DIM)
-        self.drop1 = nn.Dropout(DROPOUT_RATE)
-        self.drop2 = nn.Dropout(DROPOUT_RATE)
+        self.dropout_rate = dropout_rate
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The JAX package's initializers: glorot-uniform hidden layers,
@@ -37,10 +41,32 @@ class IEFRegressor(nn.Module):
         nn.init.uniform_(self.out.weight, -limit, limit, generator=generator)
         nn.init.zeros_(self.out.bias)
 
-    def forward(self, features: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+    def _dropout(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Flax's ``nn.Dropout``: keep with probability 1 - rate, scale the
+        kept values by 1 / (1 - rate); rate 0 returns the input."""
+        if self.dropout_rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("train-mode dropout needs a torch.Generator")
+        keep_prob = 1.0 - self.dropout_rate
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+    def forward(
+        self,
+        features: torch.Tensor,
+        theta: torch.Tensor,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
         """One IEF stage: concat(features, theta) -> delta theta (f32).
-        Dropout acts only in train mode."""
+        With ``train`` dropout acts after the fc1 and fc2 ReLUs, drawing its
+        masks from ``generator`` (on the tensors' device)."""
         x = torch.cat([features, theta], dim=-1)
-        x = self.drop1(torch.relu(self.fc1(x)))
-        x = self.drop2(torch.relu(self.fc2(x)))
-        return self.out(x).float()
+        x = torch.relu(self.fc1(x))
+        if train:
+            x = self._dropout(x, generator)
+        x = torch.relu(self.fc2(x))
+        if train:
+            x = self._dropout(x, generator)
+        return at_least_f32(self.out(x))

@@ -8,7 +8,9 @@ parameter names follow the Flax tree (``conv1``, ``bn1``,
 * classic v1 bottleneck: the stride sits on the FIRST 1x1 of each
   downsampling block;
 * every conv has a bias;
-* BatchNorm eps 1.001e-5 (Flax momentum 0.99 is torch momentum 0.01);
+* BatchNorm eps 1.001e-5 with Flax's train mode (``FlaxBatchNorm2d``):
+  batch statistics with the biased ("fast") variance, and running
+  statistics updated as ``0.99 * running + 0.01 * batch``;
 * stem: zero pad 3 -> 7x7/2 conv -> BN/relu -> zero pad 1 -> 3x3/2 max
   pool. The pool's padding is -inf in torch and zero in Keras, which agree
   after the relu (every window holds a real value >= 0);
@@ -24,14 +26,43 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from .. import at_least_f32
+
 BN_EPS = 1.001e-5
 BN_MOMENTUM = 0.01  # torch convention: Flax/Keras momentum 0.99
 
 STAGE_SIZES = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
 
-def _bn(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with the train mode of Flax's ``nn.BatchNorm``.
+
+    In train mode it normalises with the batch mean and the biased batch
+    variance ``max(E[x^2] - E[x]^2, 0)``, both in f32 (Flax's fast
+    variance), and updates the running buffers itself with that biased
+    variance: ``running = (1 - momentum) * running + momentum * batch``.
+    ``nn.BatchNorm2d`` would update the running variance with the unbiased
+    one, off by N*H*W / (N*H*W - 1). Eval mode is ``nn.BatchNorm2d``'s.
+    Parameter and buffer names are unchanged.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        xf = at_least_f32(x)  # statistics in at least f32, as Flax
+        mean = xf.mean(dim=(0, 2, 3))
+        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(mean.detach(), alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(var.detach(), alpha=self.momentum)
+            self.num_batches_tracked.add_(1)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
+def _bn(channels: int) -> FlaxBatchNorm2d:
+    return FlaxBatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 class Bottleneck(nn.Module):
@@ -86,7 +117,7 @@ class ResNet(nn.Module):
         x = self.pool(torch.relu(self.bn1(self.conv1(x))))
         for name in self.block_names:
             x = getattr(self, name)(x)
-        return x.mean(dim=(2, 3)).float()
+        return at_least_f32(x.mean(dim=(2, 3)))
 
 
 def make_resnet(depth: int = 50) -> ResNet:

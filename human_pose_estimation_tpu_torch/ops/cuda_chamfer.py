@@ -1,11 +1,10 @@
-"""Bidirectional silhouette chamfer, value-only forward: a hand-written
-CUDA kernel for Hopper (``csrc/chamfer_fwd.cu``), its plain PyTorch
-version, and the wrapper that picks between them by device.
+"""Bidirectional silhouette chamfer: hand-written CUDA kernels for Hopper,
+their plain PyTorch versions, the wrappers that pick between them by
+device, and the ``torch.autograd.Function`` that makes the loss
+differentiable.
 
-Counterpart of ``human_pose_estimation_tpu/ops/pallas_chamfer.py``'s
-forward kernel (``_kernel`` / ``_chamfer_forward``, the primal of
-``chamfer_pallas``). Per image, over the exact (P, V) squared-distance
-field ``d = (g - p)^2``:
+Counterpart of ``human_pose_estimation_tpu/ops/pallas_chamfer.py``. Per
+image, over the exact (P, V) squared-distance field ``d = (g - p)^2``:
 
 * gt->pred: the masked sum over pixels of ``|dx| + |dy|`` to the FIRST
   L2-nearest vertex (exact ties: the lowest vertex index wins, the
@@ -15,11 +14,25 @@ field ``d = (g - p)^2``:
 
 and the image's value is 0 when its mask is empty.
 
-The kernel is the forward only. A CUDA tensor that requires a gradient is
-refused: the differentiable path (the fused value-and-gradient kernel
-behind a ``torch.autograd.Function``) belongs to the training slice.
+Kernels (``csrc/``):
 
-The library is built with ``nvcc`` at first use from the source in the
+* K1 ``chamfer_fwd.cu`` (``chamfer_forward``): the value only, the
+  forward kernel ``_kernel`` / ``_chamfer_forward``. Evaluation runs it.
+* K2 ``chamfer_bwd.cu`` (``chamfer_value_and_grad``): value and the
+  gradient with respect to ``pred`` in one pass, ``_bwd_kernel`` with
+  ``l1v_ref`` (``_chamfer_value_and_grad_pallas``). The training step runs
+  it through ``ChamferFunction``.
+* K3, the same launch without the value (``chamfer_grad``,
+  ``_chamfer_grad_pred_pallas``), scaled by a cotangent.
+* K4, K2 with its index carriers in f32 (``f32_index=True``), the design
+  probe ``_bwd_kernel_f32idx`` of ``benchmarks/chamfer_variant_bench.py``.
+
+The gradient follows the JAX package's analytic VJP (``_chamfer_grad_pred``):
+``-mask * sign(g - p)`` added onto each pixel's nearest vertex, plus the
+unit vector from each vertex's first nearest pixel (1e-12 guard, zero
+where no pixel was found), all times ``has_gt``.
+
+The libraries are built with ``nvcc`` at first use from the sources in the
 package, into ``build/kernels/`` at the root of the checkout, and loaded
 with ``ctypes``.
 """
@@ -32,26 +45,46 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 __all__ = [
     "BIG",
+    "F32IDX_LAUNCHES",
+    "GRAD_LAUNCHES",
     "LAUNCHES",
+    "VALUE_GRAD_LAUNCHES",
+    "BwdParts",
+    "ChamferFunction",
     "build",
+    "build_all",
+    "build_bwd",
+    "chamfer",
+    "chamfer_bwd_parts",
+    "chamfer_bwd_parts_reference",
     "chamfer_forward",
     "chamfer_forward_reference",
+    "chamfer_grad",
+    "chamfer_grad_reference",
+    "chamfer_value_and_grad",
+    "chamfer_value_and_grad_reference",
     "last_active",
 ]
 
 BIG = 1e30  # "no pixel" sentinel of the pred->gt min, as in the JAX kernel
 
-# Number of times the wrapper launched the CUDA kernel (one per call on
-# CUDA tensors). chip_smoke.py sets it to 0 before the main path and reads
-# it after, to show that the path went through the kernel.
+# Number of times each wrapper launched its CUDA kernel (one per call on
+# CUDA tensors): K1, K2, K3 and K4. chip_smoke.py sets them to 0 before
+# the main path and reads them after, to show that the path went through
+# the kernels.
 LAUNCHES = 0
+VALUE_GRAD_LAUNCHES = 0
+GRAD_LAUNCHES = 0
+F32IDX_LAUNCHES = 0
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "chamfer_fwd.cu"
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_SOURCES = {"chamfer_fwd": _CSRC / "chamfer_fwd.cu", "chamfer_bwd": _CSRC / "chamfer_bwd.cu"}
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -59,9 +92,10 @@ _NVCC_FLAGS = (
     "-fmad=false", "-Xptxas", "-v",
 )
 
-_lib = None
-BUILD_SECONDS = None  # wall time of the nvcc call that built the library
-BUILD_LOG = ""  # nvcc's output (ptxas registers / shared memory / spills)
+_lib = None  # the loaded chamfer_fwd library
+_lib_bwd = None  # the loaded chamfer_bwd library
+BUILD_SECONDS = {}  # source name -> wall time of the nvcc call that built it
+BUILD_LOG = {}  # source name -> nvcc's output (ptxas registers / shared memory / spills)
 _NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"  # where the CUDA toolkit puts it
 _MAX_GRID_Y = 65535  # images ride on gridDim.y, which CUDA caps here
 
@@ -72,31 +106,50 @@ def _nvcc() -> str:
         return found
     if os.path.exists(_NVCC_DEFAULT):
         return _NVCC_DEFAULT
-    raise RuntimeError("nvcc not found: the CUDA chamfer kernel cannot be built")
+    raise RuntimeError("nvcc not found: the CUDA chamfer kernels cannot be built")
+
+
+def _lib_path(name: str) -> Path:
+    src = _SOURCES[name].read_bytes()
+    tag = hashlib.sha1(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
+    return _BUILD_DIR / f"lib{name}_{tag}.so"
+
+
+def _compile(names) -> None:
+    """Compile the named sources that are not built yet, one ``nvcc`` per
+    source, all started together; raise if any fails."""
+    todo = [n for n in names if not _lib_path(n).exists()]
+    if not todo:
+        return
+    nvcc = _nvcc()
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in todo:
+        out = _lib_path(name)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCES[name])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        procs.append((name, out, tmp, proc, time.perf_counter()))
+    failed = []
+    for name, out, tmp, proc, t0 in procs:
+        log, _ = proc.communicate()
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+        BUILD_LOG[name] = log
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) building {name}.cu:\n{log}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def build() -> ctypes.CDLL:
-    """Compile (once per source version) and load the kernel library."""
-    global _lib, BUILD_SECONDS, BUILD_LOG
+    """Compile (once per source version) and load the K1 library."""
+    global _lib
     if _lib is not None:
         return _lib
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha1(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = _BUILD_DIR / f"libchamfer_fwd_{tag}.so"
-    if not out.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_SECONDS = time.perf_counter() - t0
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {_SOURCE.name}:\n{BUILD_LOG}"
-            )
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    lib = ctypes.CDLL(str(out))
+    _compile(["chamfer_fwd"])
+    lib = ctypes.CDLL(str(_lib_path("chamfer_fwd")))
     lib.chamfer_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p
     ] * 3
@@ -105,6 +158,30 @@ def build() -> ctypes.CDLL:
     lib.chamfer_fwd_num_pixel_blocks.restype = ctypes.c_int
     _lib = lib
     return lib
+
+
+def build_bwd() -> ctypes.CDLL:
+    """Compile (once per source version) and load the K2/K3/K4 library."""
+    global _lib_bwd
+    if _lib_bwd is not None:
+        return _lib_bwd
+    _compile(["chamfer_bwd"])
+    lib = ctypes.CDLL(str(_lib_path("chamfer_bwd")))
+    lib.chamfer_bwd.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 7
+    )
+    lib.chamfer_bwd.restype = ctypes.c_int
+    lib.chamfer_bwd_num_pixel_blocks.argtypes = [ctypes.c_int]
+    lib.chamfer_bwd_num_pixel_blocks.restype = ctypes.c_int
+    _lib_bwd = lib
+    return lib
+
+
+def build_all() -> None:
+    """Build every kernel library in parallel, then load them."""
+    _compile(list(_SOURCES))
+    build()
+    build_bwd()
 
 
 def last_active(gt_mask: torch.Tensor) -> torch.Tensor:
@@ -187,11 +264,13 @@ def chamfer_forward(
     gt_mask: torch.Tensor,  # (N, P)
     pred_points: torch.Tensor,  # (N, V, 2)
 ) -> torch.Tensor:
-    """(N,) unnormalized bidirectional chamfer distances.
+    """(N,) unnormalized bidirectional chamfer distances (K1).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (there is no fallback: a failed build or launch raises). Inputs of any
-    float dtype are cast to f32.
+    float dtype are cast to f32. The kernel is the value only: a CUDA
+    ``pred`` that requires a gradient is refused (``chamfer`` is the
+    differentiable entry).
     """
     global LAUNCHES
     _check(gt_points, gt_mask, pred_points)
@@ -199,8 +278,8 @@ def chamfer_forward(
         return chamfer_forward_reference(gt_points, gt_mask, pred_points)
     if pred_points.requires_grad:
         raise NotImplementedError(
-            "the CUDA chamfer kernel is forward-only; its gradient kernel "
-            "comes with the training slice"
+            "chamfer_forward is the value-only kernel; take the gradient "
+            "through chamfer() / ChamferFunction"
         )
     if gt_points.shape[0] > _MAX_GRID_Y:
         raise ValueError(f"the kernel takes at most {_MAX_GRID_Y} images per call")
@@ -223,3 +302,183 @@ def chamfer_forward(
         raise RuntimeError(f"chamfer_fwd launch failed: cudaError {err}")
     LAUNCHES += 1
     return _epilogue(partial.sum(dim=1), vmin, mask)
+
+
+class BwdParts(NamedTuple):
+    """What the value-and-gradient pass computes before the epilogue."""
+
+    l1_value: Optional[torch.Tensor]  # (N,) masked gt->pred L1 sum (None without the value)
+    vmin: torch.Tensor  # (N, V) pred->gt min of d over masked pixels (BIG: none)
+    l1_grad: torch.Tensor  # (N, V, 2) sum of -mask * sign(g - p) over assigned pixels
+    l2_grad: torch.Tensor  # (N, V, 2) unit vector from the first nearest pixel
+
+
+def chamfer_bwd_parts_reference(
+    gt_points: torch.Tensor,  # (N, P, 2)
+    gt_mask: torch.Tensor,  # (N, P)
+    pred_points: torch.Tensor,  # (N, V, 2)
+    chunk: int = 1024,
+) -> BwdParts:
+    """The plain version of the K2/K3 pass (``_chamfer_grad_pred`` plus the
+    value), chunked over pixels: the direct form of ``d``, first-index
+    argmin in both directions, a strict ``<`` across chunks, the 1e30
+    sentinel and the 1e-12 guard. Compute is f32 for any input dtype."""
+    _check(gt_points, gt_mask, pred_points)
+    gt = gt_points.detach().float()
+    mask = gt_mask.detach().float()
+    pred = pred_points.detach().float()
+    n, p, _ = gt.shape
+    v = pred.shape[1]
+    dev = gt.device
+    px = pred[:, None, :, 0]
+    py = pred[:, None, :, 1]
+    l1 = torch.zeros(n, device=dev)
+    l1_grad = torch.zeros(n, v, 2, device=dev)
+    vmin = torch.full((n, v), BIG, device=dev)
+    best = torch.zeros(n, v, 2, device=dev)
+    for s in range(0, p, chunk):
+        g = gt[:, s : s + chunk]
+        m = mask[:, s : s + chunk]
+        dx = g[:, :, None, 0] - px  # (N, C, V)
+        dy = g[:, :, None, 1] - py
+        d = dx * dx + dy * dy
+        # gt -> pred: each pixel's first nearest vertex
+        near = d.argmin(dim=2, keepdim=True)  # (N, C, 1)
+        ndx = dx.gather(2, near)[..., 0]
+        ndy = dy.gather(2, near)[..., 0]
+        l1 = l1 + (m * ndx.abs() + m * ndy.abs()).sum(dim=1)
+        signs = torch.stack([m * torch.sign(ndx), m * torch.sign(ndy)], dim=-1)  # (N, C, 2)
+        l1_grad.scatter_add_(1, near.expand(-1, -1, 2), -signs)
+        # pred -> gt: the first masked pixel at the running min
+        d_masked = torch.where(m[:, :, None] > 0, d, torch.full_like(d, BIG))
+        row = d_masked.argmin(dim=1)  # (N, V)
+        cmin = d_masked.gather(1, row[:, None, :])[:, 0]
+        cxy = g.gather(1, row[..., None].expand(-1, -1, 2))  # (N, V, 2)
+        take = cmin < vmin
+        best = torch.where(take[..., None], cxy, best)
+        vmin = torch.where(take, cmin, vmin)
+    delta = pred - best
+    norm = torch.sqrt((delta * delta).sum(dim=-1, keepdim=True))
+    l2_grad = torch.where(norm > 1e-12, delta / norm.clamp_min(1e-12), torch.zeros_like(delta))
+    l2_grad = torch.where((vmin < BIG / 2)[..., None], l2_grad, torch.zeros_like(l2_grad))
+    return BwdParts(l1, vmin, l1_grad, l2_grad)
+
+
+def chamfer_bwd_parts(
+    gt_points: torch.Tensor,  # (N, P, 2)
+    gt_mask: torch.Tensor,  # (N, P)
+    pred_points: torch.Tensor,  # (N, V, 2)
+    with_value: bool = True,
+    f32_index: bool = False,
+) -> BwdParts:
+    """The K2 (``with_value``) / K3 pass; ``f32_index`` picks K4, the
+    instance whose index carriers are f32. CPU tensors take the plain
+    version; CUDA tensors launch the kernel, and a failed build or launch
+    raises."""
+    global VALUE_GRAD_LAUNCHES, GRAD_LAUNCHES, F32IDX_LAUNCHES
+    _check(gt_points, gt_mask, pred_points)
+    if not _on_cuda(gt_points):
+        parts = chamfer_bwd_parts_reference(gt_points, gt_mask, pred_points)
+        return parts if with_value else parts._replace(l1_value=None)
+    if gt_points.shape[0] > _MAX_GRID_Y:
+        raise ValueError(f"the kernel takes at most {_MAX_GRID_Y} images per call")
+    lib = build_bwd()
+    gt = gt_points.detach().float().contiguous()
+    mask = gt_mask.detach().float().contiguous()
+    pred = pred_points.detach().float().contiguous()
+    n, p, _ = gt.shape
+    v = pred.shape[1]
+    dev = gt.device
+    counts = last_active(mask).contiguous()
+    assign_idx = torch.empty((n, p), device=dev, dtype=torch.float32 if f32_index else torch.int32)
+    assign_sign = torch.empty((n, p, 2), device=dev)
+    partial = torch.empty((n, lib.chamfer_bwd_num_pixel_blocks(p) if with_value else 1), device=dev)
+    vmin = torch.empty((n, v), device=dev)
+    l1_grad = torch.empty((n, v, 2), device=dev)
+    l2_grad = torch.empty((n, v, 2), device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.chamfer_bwd(
+            gt.data_ptr(), mask.data_ptr(), pred.data_ptr(), counts.data_ptr(),
+            n, p, v, int(with_value), int(f32_index), assign_idx.data_ptr(),
+            assign_sign.data_ptr(), partial.data_ptr(), vmin.data_ptr(),
+            l1_grad.data_ptr(), l2_grad.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"chamfer_bwd launch failed: cudaError {err}")
+    if f32_index:
+        F32IDX_LAUNCHES += 1
+    elif with_value:
+        VALUE_GRAD_LAUNCHES += 1
+    else:
+        GRAD_LAUNCHES += 1
+    return BwdParts(partial.sum(dim=1) if with_value else None, vmin, l1_grad, l2_grad)
+
+
+def _value_and_grad(parts: BwdParts, gt_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The epilogue of ``_chamfer_value_and_grad_pallas``."""
+    has_gt = (gt_mask.detach().float().sum(dim=-1) > 0).float()
+    vmin = parts.vmin
+    l2_value = (torch.sqrt(vmin.clamp_min(0.0)) * (vmin < BIG / 2)).sum(dim=-1)
+    value = has_gt * (parts.l1_value + l2_value)
+    return value, has_gt[:, None, None] * (parts.l1_grad + parts.l2_grad)
+
+
+def _grad(parts: BwdParts, gt_mask: torch.Tensor, cotangent: torch.Tensor) -> torch.Tensor:
+    """The epilogue of ``_chamfer_grad_pred_pallas``."""
+    has_gt = (gt_mask.detach().float().sum(dim=-1) > 0).float()
+    scale = (cotangent.detach().float() * has_gt)[:, None, None]
+    return scale * (parts.l1_grad + parts.l2_grad)
+
+
+def chamfer_value_and_grad_reference(gt_points, gt_mask, pred_points, chunk: int = 1024):
+    """Plain version of K2: ((N,) value, (N, V, 2) unscaled d value / d pred)."""
+    return _value_and_grad(chamfer_bwd_parts_reference(gt_points, gt_mask, pred_points, chunk), gt_mask)
+
+
+def chamfer_grad_reference(gt_points, gt_mask, pred_points, cotangent, chunk: int = 1024):
+    """Plain version of K3: (N, V, 2) cotangent-scaled d value / d pred."""
+    parts = chamfer_bwd_parts_reference(gt_points, gt_mask, pred_points, chunk)
+    return _grad(parts, gt_mask, cotangent)
+
+
+def chamfer_value_and_grad(gt_points, gt_mask, pred_points, f32_index: bool = False):
+    """K2 (K4 with ``f32_index``): ((N,) value, (N, V, 2) unscaled gradient)."""
+    return _value_and_grad(chamfer_bwd_parts(gt_points, gt_mask, pred_points, True, f32_index), gt_mask)
+
+
+def chamfer_grad(gt_points, gt_mask, pred_points, cotangent):
+    """K3: the gradient only, scaled by the (N,) cotangent."""
+    parts = chamfer_bwd_parts(gt_points, gt_mask, pred_points, with_value=False)
+    return _grad(parts, gt_mask, cotangent)
+
+
+class ChamferFunction(torch.autograd.Function):
+    """The differentiable chamfer, counterpart of the custom VJP
+    ``chamfer_pallas``: when ``pred`` needs a gradient the forward runs K2
+    once and keeps the unscaled gradient, and the backward scales it by the
+    cotangent; otherwise the forward runs K1. gt and mask get no gradient
+    (JAX returns zeros for them)."""
+
+    @staticmethod
+    def forward(ctx, gt_points, gt_mask, pred_points):
+        if ctx.needs_input_grad[2]:
+            value, grad = chamfer_value_and_grad(gt_points, gt_mask, pred_points)
+            ctx.save_for_backward(grad)
+            ctx.pred_dtype = pred_points.dtype
+            return value
+        return chamfer_forward(gt_points, gt_mask, pred_points.detach())
+
+    @staticmethod
+    def backward(ctx, cotangent):
+        (grad,) = ctx.saved_tensors
+        return None, None, (cotangent[:, None, None] * grad).to(ctx.pred_dtype)
+
+
+def chamfer(gt_points: torch.Tensor, gt_mask: torch.Tensor, pred_points: torch.Tensor) -> torch.Tensor:
+    """(N,) unnormalized bidirectional chamfer distances, differentiable
+    with respect to ``pred_points`` (``ChamferFunction``). Under
+    ``torch.no_grad`` it is the value-only K1 path."""
+    if not torch.is_grad_enabled():  # needs_input_grad does not see grad mode
+        return chamfer_forward(gt_points, gt_mask, pred_points.detach())
+    return ChamferFunction.apply(gt_points, gt_mask, pred_points)

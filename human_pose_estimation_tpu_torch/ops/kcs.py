@@ -30,7 +30,7 @@ def bone_incidence_matrix(num_joints: int = NUM_KCS_JOINTS) -> np.ndarray:
 
 def _bones(joints: torch.Tensor, c_matrix: torch.Tensor) -> torch.Tensor:
     j = joints[:, :NUM_KCS_JOINTS, :]
-    return torch.einsum("nkc,kb->nbc", j, c_matrix)  # (N, 13, 3) bone vectors
+    return torch.einsum("nkc,kb->nbc", j, c_matrix.to(j.dtype))  # (N, 13, 3) bone vectors
 
 
 def kcs(joints: torch.Tensor, c_matrix: torch.Tensor) -> torch.Tensor:

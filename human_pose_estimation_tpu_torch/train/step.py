@@ -1,17 +1,29 @@
-"""Evaluation step (counterpart of ``make_val_step`` and ``_stage_losses``
-in ``human_pose_estimation_tpu/train/step.py``): the HMR forward with the
-body model on every IEF stage, then per-stage keypoint, mesh-reprojection
-and critic losses. The training step comes with the training slice."""
+"""The training step and the evaluation step (counterpart of
+``make_train_step``, ``make_val_step`` and ``_stage_losses`` in
+``human_pose_estimation_tpu/train/step.py``).
+
+The training step is the reference's hybrid step: the HMR forward with the
+body model on every IEF stage and per-stage keypoint, mesh-reprojection
+and critic losses; an Adam update of the generator (encoder, regressor,
+mean theta) on the last stage's terms; then a WGAN-GP update of the critic
+on the detached fakes of all three stages against real mocap, with the
+penalty's double backward. The evaluation step is the same forward in
+eval mode, without updates.
+"""
 from __future__ import annotations
 
-from typing import NamedTuple
+import contextlib
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import resolve_device
 from ..config import Config
 from ..core.projection import reproject_to_pixels
 from ..ops import kcs as K
 from ..ops import losses as L
+from .state import TrainState
 
 
 class GenBatch(NamedTuple):
@@ -21,6 +33,40 @@ class GenBatch(NamedTuple):
     seg_points: torch.Tensor  # (N, P, 2) padded silhouette pixel coords [x, y]
     seg_mask: torch.Tensor  # (N, P)
     kp2d: torch.Tensor  # (N, 19, 3) [x, y, vis] in [-1, 1]
+
+
+class MocapBatch(NamedTuple):
+    """Real samples for the critic."""
+
+    joints: torch.Tensor  # (M, >=14, 3)
+    shapes: torch.Tensor  # (M, 10)
+    rotations: torch.Tensor  # (M, 23, 3, 3)
+
+
+@dataclasses.dataclass
+class StepMetrics:
+    kpr_losses: torch.Tensor  # (num_stage,)
+    mr_losses: torch.Tensor  # (num_stage,)
+    gen_critic_losses: torch.Tensor  # (num_stage,)
+    generator_loss: torch.Tensor
+    critic_loss: torch.Tensor
+    critic_penalty: torch.Tensor
+    bone_length_pred: torch.Tensor
+    bone_length_gt: torch.Tensor
+
+
+@contextlib.contextmanager
+def _mode(training: bool, *modules):
+    """Put the modules in train or eval mode for the block, then restore
+    the mode each had."""
+    before = [m.training for m in modules]
+    for m in modules:
+        m.train(training)
+    try:
+        yield
+    finally:
+        for m, was in zip(modules, before):
+            m.train(was)
 
 
 def _stage_losses(stages, batch: GenBatch, critic, c_matrix, cfg: Config):
@@ -55,7 +101,8 @@ def _stage_losses(stages, batch: GenBatch, critic, c_matrix, cfg: Config):
 def make_val_step(hmr, critic, cfg: Config, return_stages: bool = False):
     """Build ``val_step(mean_theta, batch) -> dict`` for the HMR and critic
     modules (which hold their parameters) — evaluation forward + losses,
-    no updates.
+    no updates. The step runs both modules in eval mode and gives them back
+    in the mode they had.
 
     return_stages=True also returns the per-stage keypoints / verts / cams
     stacked on a leading stage axis (for per-stage visualization).
@@ -64,8 +111,11 @@ def make_val_step(hmr, critic, cfg: Config, return_stages: bool = False):
 
     @torch.no_grad()
     def val_step(mean_theta: torch.Tensor, batch: GenBatch, encoder_qparams=None):
-        stages = hmr(batch.images, mean_theta, smpl_stages="all", encoder_qparams=encoder_qparams)
-        kpr, mr, gcl = _stage_losses(stages, batch, critic, c_matrix, cfg)
+        # eval mode whatever a training step left: running BN statistics,
+        # no dropout (the JAX step passes train=False)
+        with _mode(False, hmr, critic):
+            stages = hmr(batch.images, mean_theta, smpl_stages="all", encoder_qparams=encoder_qparams)
+            kpr, mr, gcl = _stage_losses(stages, batch, critic, c_matrix, cfg)
         last = stages[-1]
         out = dict(
             kpr_losses=kpr,
@@ -84,3 +134,125 @@ def make_val_step(hmr, critic, cfg: Config, return_stages: bool = False):
         return out
 
     return val_step
+
+
+def _gp_uniforms(fake_joints, fake_shapes, fake_rs, generator: Optional[torch.Generator]):
+    """The gradient penalty's interpolation coefficients: one uniform per
+    ELEMENT of each input (the reference's quirk; the paper draws one per
+    sample), drawn from the step's generator."""
+
+    def draw(t):
+        return torch.rand(t.shape, generator=generator, device=t.device, dtype=t.dtype)
+
+    return draw(fake_joints), draw(fake_shapes), draw(fake_rs)
+
+
+def _apply(opt, sched, params, grads) -> None:
+    """One optimizer update from explicit gradients, then the schedule."""
+    for p, g in zip(params, grads):
+        p.grad = torch.zeros_like(p) if g is None else g
+    opt.step()
+    sched.step()
+    for p in params:
+        p.grad = None
+
+
+def make_train_step(cfg: Config, device=None):
+    """Build ``train_step(state, batch, mocap, generator) -> StepMetrics``.
+
+    The step updates ``state`` in place (parameters, BN statistics,
+    optimizer states, ``state.step``): first the generator, then — unless
+    ``cfg.encoder_only`` or ``mocap is None`` — the critic. ``generator``
+    is a ``torch.Generator`` on the state's device; it draws the dropout
+    masks and the penalty's uniforms. The step leaves the modules in the
+    mode it found them. Runs on ``cuda`` unless ``device`` says otherwise.
+    """
+    dev = resolve_device(device)
+    c_matrix = torch.as_tensor(K.bone_incidence_matrix(), device=dev)
+
+    def generator_loss(state: TrainState, batch: GenBatch, generator):
+        with _mode(True, state.hmr):
+            stages = state.hmr(batch.images, state.mean_theta, smpl_stages="all", generator=generator)
+        kpr, mr, gcl = _stage_losses(stages, batch, state.critic, c_matrix, cfg)
+        loss = torch.zeros((), device=dev)
+        if cfg.use_kpr_loss:
+            loss = loss + kpr[-1]
+        if cfg.use_mesh_repro_loss:
+            loss = loss + mr[-1]
+        if not cfg.encoder_only:
+            loss = loss + gcl[-1]
+        if cfg.cam_scale_hinge > 0.0:
+            # gauge fix: keep the last stage's weak-perspective scale out of
+            # the mirrored s < 0 gauge; zero whenever s >= margin
+            s = stages[-1].cam[:, 0]
+            loss = loss + cfg.cam_scale_hinge * torch.relu(cfg.cam_scale_margin - s).square().mean()
+        return loss, stages, (kpr, mr, gcl)
+
+    def critic_loss(critic, fakes, real: MocapBatch, generator) -> Tuple[torch.Tensor, torch.Tensor]:
+        fake_joints, fake_shapes, fake_rs = fakes
+        real_joints = real.joints[:, :14]
+        real_out = critic(K.kcs(real_joints, c_matrix), real_joints, real.shapes, real.rotations)
+        fake_out = critic(K.kcs(fake_joints, c_matrix), fake_joints, fake_shapes, fake_rs)
+        # WGAN loss: the sum over the 3 heads of the batch-mean margin
+        wgan = (fake_out - real_out).mean(dim=0).sum()
+        penalty = torch.zeros((), device=dev)
+        if cfg.use_gradient_penalty:
+            alpha, beta, gamma = _gp_uniforms(fake_joints, fake_shapes, fake_rs, generator)
+            i_joints = (fake_joints + alpha * (real_joints - fake_joints)).detach()
+            i_shapes = (fake_shapes + beta * (real.shapes - fake_shapes)).detach()
+            i_rs = (fake_rs + gamma * (real.rotations - fake_rs)).detach()
+            # the KCS is an input of its own, as in the JAX step: built from
+            # the detached joints before any input requires a gradient, so
+            # the joints' gradient does not take the path through kcs
+            i_kcs = K.kcs(i_joints, c_matrix)
+            inputs = [t.requires_grad_() for t in (i_kcs, i_joints, i_shapes, i_rs)]
+            out = critic(i_kcs, i_joints[:, :14], i_shapes, i_rs)
+            grads = torch.autograd.grad(out.sum(), inputs, create_graph=True)
+            penalty = L.gradient_penalty(grads, mode=cfg.gp_mode)
+            wgan = wgan + 10.0 * penalty
+        return wgan, penalty
+
+    def train_step(
+        state: TrainState, batch: GenBatch, mocap: Optional[MocapBatch], generator: Optional[torch.Generator]
+    ) -> StepMetrics:
+        # ------------------------- generator update -----------------------
+        gen_loss, stages, (kpr, mr, gcl) = generator_loss(state, batch, generator)
+        gen_params = state.gen_params()
+        grads = torch.autograd.grad(gen_loss, gen_params, allow_unused=True)
+        _apply(state.gen_opt, state.gen_sched, gen_params, grads)
+
+        fake_joints = torch.cat([s.joints3d[:, :14] for s in stages]).detach()
+        fake_shapes = torch.cat([s.shape for s in stages]).detach()
+        fake_rs = torch.cat([s.rotations for s in stages]).detach()
+        zero = torch.zeros((), device=dev)
+        with torch.no_grad():
+            bone_pred = K.bone_lengths_sq(fake_joints, c_matrix).sum(dim=1).mean()
+            # a metric, not a critic input: computed whenever mocap is given
+            bone_gt = (
+                K.bone_lengths_sq(mocap.joints[:, :14], c_matrix).sum(dim=1).mean()
+                if mocap is not None
+                else zero
+            )
+
+        # --------------------------- critic update ------------------------
+        if cfg.encoder_only or mocap is None:
+            c_loss, penalty = zero, zero
+        else:
+            c_loss, penalty = critic_loss(state.critic, (fake_joints, fake_shapes, fake_rs), mocap, generator)
+            c_params = list(state.critic.parameters())
+            c_grads = torch.autograd.grad(c_loss, c_params, allow_unused=True)
+            _apply(state.critic_opt, state.critic_sched, c_params, c_grads)
+
+        state.step += 1
+        return StepMetrics(
+            kpr_losses=kpr.detach(),
+            mr_losses=mr.detach(),
+            gen_critic_losses=gcl.detach(),
+            generator_loss=gen_loss.detach(),
+            critic_loss=c_loss.detach(),
+            critic_penalty=penalty.detach(),
+            bone_length_pred=bone_pred,
+            bone_length_gt=bone_gt,
+        )
+
+    return train_step

@@ -174,8 +174,8 @@ def test_hmr_refuses_unported_paths(models):
     with pytest.raises(ValueError):
         thmr(images, mean, smpl_stages="first")
     thmr.train()
-    try:
-        with pytest.raises(NotImplementedError):
+    try:  # train-mode dropout draws from an explicit generator only
+        with pytest.raises(ValueError, match="Generator"):
             thmr(images, mean)
     finally:
         thmr.eval()

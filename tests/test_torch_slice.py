@@ -37,7 +37,8 @@ from human_pose_estimation_tpu_torch.models import port_jax
 from human_pose_estimation_tpu_torch.models.critic import Critic
 from human_pose_estimation_tpu_torch.models.hmr import HMR
 from human_pose_estimation_tpu_torch.ops import metrics as tmetrics
-from human_pose_estimation_tpu_torch.train.step import GenBatch, make_val_step
+from human_pose_estimation_tpu_torch.train.state import create_train_state as tcreate_train_state
+from human_pose_estimation_tpu_torch.train.step import GenBatch, make_train_step, make_val_step
 from human_pose_estimation_tpu_torch.utils.assets import synthetic_model
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -168,11 +169,19 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA"):
         HMR(synthetic_model(num_verts=30), encoder_stage_sizes=STAGES)
+    cfg = Config(encoder_stage_sizes="1,1,1,1", encoder_dtype="float32")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tcreate_train_state(synthetic_model(num_verts=30), np.zeros(85, np.float32), cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_train_step(cfg)
     assert resolve_device("cpu") == torch.device("cpu")
+    assert tcreate_train_state(synthetic_model(num_verts=30), np.zeros(85, np.float32), cfg, device="cpu").device.type == "cpu"
+    make_train_step(cfg, device="cpu")
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port loads no jax, flax, optax or JAX
+    """Importing every module of the port (the training state and step and
+    the CUDA kernels' wrappers among them) loads no jax, flax, optax or JAX
     package module; chip_smoke.py imports none of them either."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -181,12 +190,15 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'human_pose_estimation_tpu'))\n"
-        "print(len([m for m in sys.modules if m.startswith('human_pose_estimation_tpu_torch')]), bad)\n"
-        "sys.exit(1 if bad else 0)\n"
+        "mods = [m for m in sys.modules if m.startswith('human_pose_estimation_tpu_torch')]\n"
+        "missing = {'human_pose_estimation_tpu_torch.train.state', 'human_pose_estimation_tpu_torch.train.step', "
+        "'human_pose_estimation_tpu_torch.ops.cuda_chamfer', 'human_pose_estimation_tpu_torch.ops.losses'} - set(mods)\n"
+        "print(len(mods), bad, sorted(missing))\n"
+        "sys.exit(1 if bad or missing else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 20  # every module was imported
+    assert int(proc.stdout.split()[0]) >= 23  # every module was imported
 
     tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
     names = set()
