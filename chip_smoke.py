@@ -7,10 +7,12 @@ Builds the port's CUDA kernels from the sources in this checkout (one
 ``nvcc`` per source, in parallel), holds each against its plain PyTorch
 version at the shape of the main path (K1, the value-only chamfer; K2/K3,
 the value-and-gradient chamfer and its gradient-only launch; K4, K2 with
-f32 index carriers), then drives the port's main path at full width: the
+f32 index carriers; with exact ties inside and across the chunks of K2's
+split passes) and prints K2's device time per launch of its four kernels,
+then drives the port's main path at full width: the
 serving ``Predictor``, the evaluation ``make_val_step`` and the training
 ``make_train_step``, counting each kernel's launches over the three; and
-last holds one f32 training step on the card against the same step on the
+last holds one f64 training step on the card against the same step on the
 CPU. Every phase prints one line; any failure raises and the script exits
 non-zero. The line before the last is a JSON object with one entry per
 ported kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -43,9 +45,17 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _time_cuda(fn, iters: int, warmup: int = 3) -> float:
-    """Mean milliseconds per call over ``iters`` back-to-back calls, timed
-    with CUDA events after ``warmup`` calls."""
+def _time_cuda(fn, iters: int, warmup: int = 3, queued: bool = False, batch: int = 20) -> float:
+    """Mean milliseconds per call over ``iters`` calls, timed with CUDA
+    events after ``warmup`` calls. By default the calls run back to back,
+    and the events see whichever of the host and the device is slower (the
+    ``ms`` of the kernels line). With ``queued`` the calls go in batches of
+    ``batch``, and before each the device is held in a spin kernel for
+    longer than the host takes to enqueue the batch, so that the events see
+    device time alone, without gaps where the device waits for the host
+    (``device_ms``; a batch of 20 calls stays within the device's queue of
+    pending launches, past which the host would block and pace the device
+    again)."""
     import torch
 
     for _ in range(warmup):
@@ -53,39 +63,58 @@ def _time_cuda(fn, iters: int, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    if not queued:
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+    t0 = time.perf_counter()
+    fn()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def _ptxas_summary(log: str) -> str:
-    """'kernel: N registers, B bytes smem, S spill stores' per entry
-    function, from nvcc's -Xptxas -v output."""
-    import re
-
-    parts, name = [], None
-    for line in log.splitlines():
-        m = re.search(
-            r"Compiling entry function '_Z\w*?(gt_to_pred_kernel|pred_to_gt_kernel|assign_kernel|vertex_kernel)"
-            r"(I[if](?:Lb([01]))?)?", line,
-        )
-        if m:
-            name = m.group(1) + (f"<{m.group(2)[1]}{',' + m.group(3) if m.group(3) else ''}>" if m.group(2) else "")
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m and name:
-            spills = m.group(1)
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
-        if m and name:
-            parts.append(f"{name}: {m.group(1)} registers, {m.group(2)} B smem, {spills} B spilled")
-            name = None
-    return "; ".join(parts) or "ptxas output not found"
+    host_s = time.perf_counter() - t0  # an upper bound of the host's time per call
+    total_ms, done = 0.0, 0
+    while done < iters:
+        n = min(batch, iters - done)
+        torch.cuda._sleep(int(2e9 * (0.002 + 2 * host_s * n)))  # cycles, at up to 2 GHz
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        total_ms += start.elapsed_time(end)
+        done += n
+    return total_ms / iters
 
 
 K1_KERNELS = ("gt_to_pred_kernel", "pred_to_gt_kernel")
-K2_KERNELS = ("assign_kernel", "vertex_kernel")
+K2_KERNELS = ("assign_kernel", "assign_merge_kernel", "vertex_kernel", "vertex_merge_kernel")
+
+
+def _ptxas_summary(log: str) -> str:
+    """'kernel<args>: N registers, B bytes smem, S spill stores' per entry
+    function, from nvcc's -Xptxas -v output."""
+    import re
+
+    names = "|".join(K1_KERNELS + K2_KERNELS)
+    parts, name, spills = [], None, "?"
+    for line in log.splitlines():
+        m = re.search(rf"Compiling entry function '_Z\w*?\d+({names})(?:I((?:[if]|L[ib]\d+E)+)E)?", line)
+        if m:
+            args = [
+                {"i": "int", "f": "float"}[t] if t else ({"0": "false", "1": "true"}[n] if k == "b" else n)
+                for k, n, t in re.findall(r"L([ib])(\d+)E|([if])", m.group(2) or "")
+            ]
+            name = m.group(1) + (f"<{','.join(args)}>" if args else "")
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spills = m.group(1)
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)  # no smem: no smem field
+        if m and name:
+            parts.append(f"{name}: {m.group(1)} registers, {m.group(2) or 0} B smem, {spills} B spilled")
+            name = None
+    return "; ".join(parts) or "ptxas output not found"
 
 
 def _device_breakdown(torch, fn, wall_ms: float, label: str = "K1", names=K1_KERNELS) -> str:
@@ -201,15 +230,16 @@ def phase_kernel(torch, cc, card):
         raise AssertionError(f"K1 tie case gave {tie}, not 17")
 
     ms = _time_cuda(lambda: cc.chamfer_forward(gt, mask, pred), iters=100)
+    device_ms = _time_cuda(lambda: cc.chamfer_forward(gt, mask, pred), iters=100, queued=True)
     plain_ms = _time_cuda(lambda: cc.chamfer_forward_reference(gt, mask, pred), iters=5, warmup=1)
     library_ms = _pred_to_gt_library_ms(torch, cc, gt, mask, pred, iters=20, with_indices=False)
     valid = float(mask.sum())
     bound_ms, bound_by = _bound(torch, cc, gt, mask, pred, out_bytes=n * 4)
     print(
         f"[kernel] K1 chamfer_fwd N={n} P={p} V={v} valid={int(valid)}: "
-        f"max_abs_err={float(err.max()):.3e} (rtol {rtol}) ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} cdist_ms={library_ms:.4f} bound_ms={bound_ms:.4f} "
-        f"({bound_by}) on {card}",
+        f"max_abs_err={float(err.max()):.3e} (rtol {rtol}) ms={ms:.4f} (back to back) "
+        f"device_ms={device_ms:.4f} (queued ahead of the device) plain_ms={plain_ms:.4f} "
+        f"cdist_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) on {card}",
         flush=True,
     )
     return {
@@ -219,6 +249,7 @@ def phase_kernel(torch, cc, card):
         "replaces": "human_pose_estimation_tpu/ops/pallas_chamfer.py:56",
         "max_abs_err": float(err.max()),
         "ms": ms,
+        "device_ms": device_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -226,17 +257,104 @@ def phase_kernel(torch, cc, card):
     }
 
 
+def _chunk_tie_inputs(gt, mask, pred, pixel_chunk, vertex_chunk, group):
+    """Copies of the kernel inputs with exact ties that straddle chunk and
+    group boundaries of K2's split passes: pixel 1 of image 3 (3100 valid
+    pixels) is d=25 from vertices vertex_chunk-1 (L1 7) and vertex_chunk
+    (L1 5), the last of one vertex chunk and the first of the next; pixel
+    2 of image 3 is d=25 from vertices vertex_chunk+group-1 and
+    vertex_chunk+group, the last of one group and the first of the next
+    inside one vertex chunk; vertex 100 of image 2 (9000 valid pixels) is
+    d=25 from pixels pixel_chunk-1 and pixel_chunk, the last of one pixel
+    chunk and the first of the next; vertex 300 of image 2 is d=25 from
+    pixels pixel_chunk+group-1 and pixel_chunk+group, across a group
+    boundary inside one pixel chunk; vertex 200 of image 2 is d=25 from
+    pixels 2000 and 2001, inside one group. The first index must win
+    each."""
+    import torch
+
+    gt, mask, pred = gt.clone(), mask.clone(), pred.clone()
+    vc, pc = vertex_chunk, pixel_chunk
+    gt[3, 1] = torch.tensor([-300.0, -300.0])
+    pred[3, vc - 1] = torch.tensor([-297.0, -296.0])
+    pred[3, vc] = torch.tensor([-295.0, -300.0])
+    gt[3, 2] = torch.tensor([-500.0, 500.0])
+    pred[3, vc + group - 1] = torch.tensor([-497.0, 504.0])
+    pred[3, vc + group] = torch.tensor([-495.0, 500.0])
+    gt[2, pc + group - 1] = torch.tensor([703.0, 704.0])
+    gt[2, pc + group] = torch.tensor([704.0, 703.0])
+    mask[2, pc + group - 1 : pc + group + 1] = 1.0
+    pred[2, 300] = torch.tensor([700.0, 700.0])
+    gt[2, pc - 1] = torch.tensor([503.0, 504.0])
+    gt[2, pc] = torch.tensor([504.0, 503.0])
+    mask[2, pc - 1 : pc + 1] = 1.0
+    pred[2, 100] = torch.tensor([500.0, 500.0])
+    gt[2, 2000] = torch.tensor([603.0, 604.0])
+    gt[2, 2001] = torch.tensor([604.0, 603.0])
+    mask[2, 2000:2002] = 1.0
+    pred[2, 200] = torch.tensor([600.0, 600.0])
+    return gt, mask, pred
+
+
+def _check_bwd_parts(torch, tag, out, again, ref):
+    """The kernel's parts against the plain version's: the L1 gradient and
+    vmin bit-equal, the L2 gradient within 1e-6, two runs bit-identical;
+    returns the L2 gradient's error."""
+    for a, b, field in zip(out, again, out._fields):
+        if a is not None and not torch.equal(a, b):
+            raise AssertionError(f"{tag}: two runs differ in {field}")
+    if not torch.equal(out.l1_grad, ref.l1_grad):
+        err = float((out.l1_grad - ref.l1_grad).abs().max())
+        raise AssertionError(f"{tag}: the L1 gradient differs from the plain version by {err}")
+    l2_err = float((out.l2_grad - ref.l2_grad).abs().max())
+    if not l2_err <= 1e-6:
+        raise AssertionError(f"{tag}: the L2 gradient differs from the plain version by {l2_err}")
+    if not torch.equal(out.vmin, ref.vmin):
+        raise AssertionError(f"{tag}: vmin is not bit-equal to the plain version")
+    return l2_err
+
+
+def _per_launch_ms(torch, fn, calls, names):
+    """{kernel: (device ms per launch, launches)} of the CUDA kernels
+    named in ``names`` over ``calls`` calls of ``fn``, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    import re
+
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        for k in names:
+            if re.search(rf"\b{k}[<(]", e.key):
+                ms, count = out.get(k, (0.0, 0))
+                out[k] = (ms + e.self_device_time_total / 1e3, count + e.count)
+    return {k: (ms / count, count) for k, (ms, count) in out.items()}
+
+
 def phase_kernel_bwd(torch, cc, card):
     """K2 (value and gradient), K3 (gradient only) and K4 (K2 with f32
     index carriers) against their plain version on the card at the
     training shape: value rtol 1e-5, L1 gradient exactly equal, L2
     gradient atol 1e-6, vmin bit-equal, two runs bit-identical, the tie's
-    gradient on vertex 0; then their times."""
+    gradient on vertex 0, an empty mask's value and gradient 0, and the
+    ties that straddle chunk and group boundaries of the split passes; then
+    their times, and K2's device time per launch of its four kernels."""
     gt, mask, pred = _kernel_inputs(torch)
     n = gt.shape[0]
     v = pred.shape[1]
+    tiling = cc.bwd_tiling()
+    pc, vc, group = tiling["pixel_chunk"], tiling["vertex_chunk"], tiling["group"]
+    tie_inputs = _chunk_tie_inputs(gt, mask, pred, pc, vc, group)
     ct = torch.linspace(0.5, 2.0, n, device="cuda")
     ref = cc.chamfer_bwd_parts_reference(gt, mask, pred)
+    tie_ref = cc.chamfer_bwd_parts_reference(*tie_inputs)
     ref_value, ref_grad = cc.chamfer_value_and_grad_reference(gt, mask, pred)
     ref_k3 = cc.chamfer_grad_reference(gt, mask, pred, ct)
     variants = (
@@ -249,19 +367,21 @@ def phase_kernel_bwd(torch, cc, card):
         out = cc.chamfer_bwd_parts(gt, mask, pred, with_value, f32_index)
         again = cc.chamfer_bwd_parts(gt, mask, pred, with_value, f32_index)
         torch.cuda.synchronize()
-        for a, b, field in zip(out, again, out._fields):
-            if a is not None and not torch.equal(a, b):
-                raise AssertionError(f"{tag}: two runs differ in {field}")
-        if not torch.equal(out.l1_grad, ref.l1_grad):
-            err = float((out.l1_grad - ref.l1_grad).abs().max())
-            raise AssertionError(f"{tag}: the L1 gradient differs from the plain version by {err}")
-        l2_err = float((out.l2_grad - ref.l2_grad).abs().max())
-        if not l2_err <= 1e-6:
-            raise AssertionError(f"{tag}: the L2 gradient differs from the plain version by {l2_err}")
-        if not torch.equal(out.vmin, ref.vmin):
-            raise AssertionError(f"{tag}: vmin is not bit-equal to the plain version")
+        l2_err = _check_bwd_parts(torch, tag, out, again, ref)
         if out.l1_grad[7, 0].tolist() != [1.0, 1.0] or out.l1_grad[7, 1].tolist() != [0.0, 0.0]:
             raise AssertionError(f"{tag}: the tie's L1 gradient went to {out.l1_grad[7, :2].tolist()}, not vertex 0")
+        tie = cc.chamfer_bwd_parts(*tie_inputs, with_value, f32_index)
+        tie_again = cc.chamfer_bwd_parts(*tie_inputs, with_value, f32_index)
+        l2_err = max(l2_err, _check_bwd_parts(torch, f"{tag} (chunk ties)", tie, tie_again, tie_ref))
+        for first in (vc - 1, vc + group - 1):
+            if tie.l1_grad[3, first].tolist() != [1.0, 1.0] or tie.l1_grad[3, first + 1].tolist() != [0.0, 0.0]:
+                raise AssertionError(
+                    f"{tag}: the vertex tie went to {tie.l1_grad[3, first : first + 2].tolist()}, not vertex {first}"
+                )
+        for vert, first in ((100, pc - 1), (300, pc + group - 1), (200, 2000)):
+            l2_tie = tie.l2_grad[2, vert].tolist()
+            if abs(l2_tie[0] + 0.6) > 1e-6 or abs(l2_tie[1] + 0.8) > 1e-6:
+                raise AssertionError(f"{tag}: the pixel tie on vertex {vert} gave {l2_tie}, not pixel {first}'s")
         if with_value:
             value, grad = cc.chamfer_value_and_grad(gt, mask, pred, f32_index=f32_index)
             bad = (value - ref_value).abs() > 1e-5 * ref_value.abs()
@@ -282,12 +402,14 @@ def phase_kernel_bwd(torch, cc, card):
             out_bytes = pred.numel() * 4
             in_extra = n * 4  # the cotangent
         ms = _time_cuda(fn, iters=100)
+        device_ms = _time_cuda(fn, iters=100, queued=True)
         plain_ms = _time_cuda(plain, iters=3, warmup=1)
         library_ms = _pred_to_gt_library_ms(torch, cc, gt, mask, pred, iters=20, with_indices=True)
         bound_ms, bound_by = _bound(torch, cc, gt, mask, pred, out_bytes, in_extra)
         lines.append(
-            f"{tag} {name}: max_abs_err={max_err:.3e} l2_err={l2_err:.3e} ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} cdist_min_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})"
+            f"{tag} {name}: max_abs_err={max_err:.3e} l2_err={l2_err:.3e} ms={ms:.4f} (back to back) "
+            f"device_ms={device_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"cdist_min_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})"
         )
         entries.append({
             "name": name,
@@ -296,14 +418,22 @@ def phase_kernel_bwd(torch, cc, card):
             "replaces": replaces,
             "max_abs_err": max_err,
             "ms": ms,
+            "device_ms": device_ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": library_ms,
         })
+    split = _per_launch_ms(torch, lambda: cc.chamfer_value_and_grad(gt, mask, pred), 20, K2_KERNELS)
+    splits = ", ".join(f"{k} {split[k][0]:.4f} ms x{split[k][1]}" for k in K2_KERNELS if k in split)
+    warps = cc.bwd_resident_warps()
     print(
         f"[kernel] chamfer_bwd N={n} P={gt.shape[1]} V={v} valid={int(mask.sum())}: L1 gradient exact, "
-        f"vmin bit-equal, repeatable, tie on vertex 0, value rtol 1e-5 | " + " | ".join(lines) + f" | on {card}",
+        f"vmin bit-equal, repeatable, tie on vertex 0, chunk-straddling ties on vertex {vc - 1} and pixel "
+        f"{pc - 1}, group-straddling ties on vertex {vc + group - 1} and pixel {pc + group - 1}, pixel tie "
+        f"inside a group on pixel 2000, empty mask 0, value rtol 1e-5 | " + " | ".join(lines) + f" | K2 per launch over 20 calls "
+        f"(profiler): {splits or 'not measured (the profiler saw no CUDA kernel)'} | tiling {tiling}, "
+        f"resident warps per SM {warps} | on {card}",
         flush=True,
     )
     return entries

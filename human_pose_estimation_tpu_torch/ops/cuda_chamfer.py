@@ -19,9 +19,10 @@ Kernels (``csrc/``):
 * K1 ``chamfer_fwd.cu`` (``chamfer_forward``): the value only, the
   forward kernel ``_kernel`` / ``_chamfer_forward``. Evaluation runs it.
 * K2 ``chamfer_bwd.cu`` (``chamfer_value_and_grad``): value and the
-  gradient with respect to ``pred`` in one pass, ``_bwd_kernel`` with
-  ``l1v_ref`` (``_chamfer_value_and_grad_pallas``). The training step runs
-  it through ``ChamferFunction``.
+  gradient with respect to ``pred`` in one call of four launches (two
+  passes split into chunks, each merged in chunk order), ``_bwd_kernel``
+  with ``l1v_ref`` (``_chamfer_value_and_grad_pallas``). The training step
+  runs it through ``ChamferFunction``.
 * K3, the same launch without the value (``chamfer_grad``,
   ``_chamfer_grad_pred_pallas``), scaled by a cotangent.
 * K4, K2 with its index carriers in f32 (``f32_index=True``), the design
@@ -60,6 +61,8 @@ __all__ = [
     "build",
     "build_all",
     "build_bwd",
+    "bwd_resident_warps",
+    "bwd_tiling",
     "chamfer",
     "chamfer_bwd_parts",
     "chamfer_bwd_parts_reference",
@@ -97,7 +100,7 @@ _lib_bwd = None  # the loaded chamfer_bwd library
 BUILD_SECONDS = {}  # source name -> wall time of the nvcc call that built it
 BUILD_LOG = {}  # source name -> nvcc's output (ptxas registers / shared memory / spills)
 _NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"  # where the CUDA toolkit puts it
-_MAX_GRID_Y = 65535  # images ride on gridDim.y, which CUDA caps here
+_MAX_GRID_Y = 65535  # images ride on gridDim.y (K1) or gridDim.z (K2), which CUDA caps here
 
 
 def _nvcc() -> str:
@@ -163,18 +166,49 @@ def build() -> ctypes.CDLL:
 def build_bwd() -> ctypes.CDLL:
     """Compile (once per source version) and load the K2/K3/K4 library."""
     global _lib_bwd
-    if _lib_bwd is not None:
-        return _lib_bwd
-    _compile(["chamfer_bwd"])
-    lib = ctypes.CDLL(str(_lib_path("chamfer_bwd")))
+    if _lib_bwd is None:
+        _compile(["chamfer_bwd"])
+        _lib_bwd = _load_bwd(_lib_path("chamfer_bwd"))
+    return _lib_bwd
+
+
+def _load_bwd(path) -> ctypes.CDLL:
+    """Load a library built from ``csrc/chamfer_bwd.cu`` and declare its C
+    interface."""
+    lib = ctypes.CDLL(str(path))
     lib.chamfer_bwd.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 7
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
     )
     lib.chamfer_bwd.restype = ctypes.c_int
     lib.chamfer_bwd_num_pixel_blocks.argtypes = [ctypes.c_int]
     lib.chamfer_bwd_num_pixel_blocks.restype = ctypes.c_int
-    _lib_bwd = lib
+    lib.chamfer_bwd_scratch_bytes.argtypes = [ctypes.c_int] * 3
+    lib.chamfer_bwd_scratch_bytes.restype = ctypes.c_longlong
+    lib.chamfer_bwd_tiling.argtypes = [ctypes.c_void_p]
+    lib.chamfer_bwd_tiling.restype = None
+    lib.chamfer_bwd_resident_warps.argtypes = [ctypes.c_void_p]
+    lib.chamfer_bwd_resident_warps.restype = ctypes.c_int
     return lib
+
+
+def bwd_tiling(lib: Optional[ctypes.CDLL] = None) -> dict:
+    """The compiled sizes of a K2 library (the default build if None):
+    pixel chunk and vertex chunk of its two split passes, pixels and
+    vertices held per thread, and the group in which each chunk keeps the
+    first index of its min."""
+    out = (ctypes.c_int * 5)()
+    (lib or build_bwd()).chamfer_bwd_tiling(out)
+    return dict(zip(("pixel_chunk", "vertex_chunk", "pixels_per_thread", "verts_per_thread", "group"), out))
+
+
+def bwd_resident_warps(lib: Optional[ctypes.CDLL] = None) -> dict:
+    """Resident warps per SM of K2's four kernels, from the CUDA occupancy
+    calculator on the current device."""
+    out = (ctypes.c_int * 4)()
+    err = (lib or build_bwd()).chamfer_bwd_resident_warps(out)
+    if err != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor failed: cudaError {err}")
+    return dict(zip(("assign", "assign_merge", "vertex", "vertex_merge"), out))
 
 
 def build_all() -> None:
@@ -382,7 +416,20 @@ def chamfer_bwd_parts(
         return parts if with_value else parts._replace(l1_value=None)
     if gt_points.shape[0] > _MAX_GRID_Y:
         raise ValueError(f"the kernel takes at most {_MAX_GRID_Y} images per call")
-    lib = build_bwd()
+    parts = _launch_bwd(build_bwd(), gt_points, gt_mask, pred_points, with_value, f32_index)
+    if f32_index:
+        F32IDX_LAUNCHES += 1
+    elif with_value:
+        VALUE_GRAD_LAUNCHES += 1
+    else:
+        GRAD_LAUNCHES += 1
+    return parts
+
+
+def _launch_bwd(lib, gt_points, gt_mask, pred_points, with_value: bool, f32_index: bool) -> BwdParts:
+    """One launch of the K2/K3/K4 library ``lib`` on CUDA tensors: scratch
+    and outputs from ``torch.empty`` at the sizes the library reports, the
+    four kernels on the current stream, no host synchronisation."""
     gt = gt_points.detach().float().contiguous()
     mask = gt_mask.detach().float().contiguous()
     pred = pred_points.detach().float().contiguous()
@@ -390,8 +437,7 @@ def chamfer_bwd_parts(
     v = pred.shape[1]
     dev = gt.device
     counts = last_active(mask).contiguous()
-    assign_idx = torch.empty((n, p), device=dev, dtype=torch.float32 if f32_index else torch.int32)
-    assign_sign = torch.empty((n, p, 2), device=dev)
+    scratch = torch.empty(lib.chamfer_bwd_scratch_bytes(n, p, v), device=dev, dtype=torch.uint8)
     partial = torch.empty((n, lib.chamfer_bwd_num_pixel_blocks(p) if with_value else 1), device=dev)
     vmin = torch.empty((n, v), device=dev)
     l1_grad = torch.empty((n, v, 2), device=dev)
@@ -400,18 +446,11 @@ def chamfer_bwd_parts(
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.chamfer_bwd(
             gt.data_ptr(), mask.data_ptr(), pred.data_ptr(), counts.data_ptr(),
-            n, p, v, int(with_value), int(f32_index), assign_idx.data_ptr(),
-            assign_sign.data_ptr(), partial.data_ptr(), vmin.data_ptr(),
-            l1_grad.data_ptr(), l2_grad.data_ptr(), stream,
+            n, p, v, int(with_value), int(f32_index), scratch.data_ptr(), partial.data_ptr(),
+            vmin.data_ptr(), l1_grad.data_ptr(), l2_grad.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"chamfer_bwd launch failed: cudaError {err}")
-    if f32_index:
-        F32IDX_LAUNCHES += 1
-    elif with_value:
-        VALUE_GRAD_LAUNCHES += 1
-    else:
-        GRAD_LAUNCHES += 1
     return BwdParts(partial.sum(dim=1) if with_value else None, vmin, l1_grad, l2_grad)
 
 

@@ -235,25 +235,66 @@ def test_xla_form_chamfer_loss_matches_jax(chunk, rng):
     np.testing.assert_allclose(float(mr), float(np.asarray(ref).sum() / (3.0 + v)), rtol=1e-5)
 
 
+def _chunk_crossing_case(rng, pixel_chunk, vertex_chunk, group):
+    """Two images of 2.3 pixel chunks and 2.1 vertex chunks, with an exact
+    tie on each side of a chunk boundary: pixel 0 of image 0 is d=25 from
+    vertices vc-1 and vc, and vertex 0 of image 1 is d=25 from pixels
+    pc-1 and pc; on each side of a group boundary inside a chunk: pixel 1
+    of image 0 is d=25 from vertices vc+group-1 and vc+group, and vertex 2
+    of image 1 from pixels pc+group-1 and pc+group; and vertex 1 of image
+    1 is d=25 from pixels pc+1 and pc+2, inside one group."""
+    p, v = 2 * pixel_chunk + pixel_chunk // 3, 2 * vertex_chunk + vertex_chunk // 10
+    gt, mask, pred = _case(rng, 2, p, v)
+    vc, pc = vertex_chunk, pixel_chunk
+    gt[0, 0], mask[0, 0] = [-100.0, -100.0], 1.0
+    pred[0, vc - 1], pred[0, vc] = [-97.0, -96.0], [-95.0, -100.0]
+    gt[1, pc - 1], gt[1, pc] = [503.0, 504.0], [504.0, 503.0]
+    mask[1, [pc - 1, pc]] = 1.0
+    pred[1, 0] = [500.0, 500.0]
+    gt[1, pc + 1], gt[1, pc + 2] = [703.0, 704.0], [704.0, 703.0]
+    mask[1, [pc + 1, pc + 2]] = 1.0
+    pred[1, 1] = [700.0, 700.0]
+    gt[0, 1], mask[0, 1] = [-500.0, 500.0], 1.0
+    pred[0, vc + group - 1], pred[0, vc + group] = [-497.0, 504.0], [-495.0, 500.0]
+    gt[1, pc + group - 1], gt[1, pc + group] = [903.0, 904.0], [904.0, 903.0]
+    mask[1, [pc + group - 1, pc + group]] = 1.0
+    pred[1, 2] = [900.0, 900.0]
+    return gt, mask, pred
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_card(rng):
     """K2, K3 and K4 against the plain version on the card: L1 gradient
-    exact, L2 gradient atol 1e-6, value rtol 1e-5, bit-repeatable."""
+    exact, L2 gradient atol 1e-6, vmin bit-equal, value rtol 1e-5,
+    bit-repeatable; at a second shape that crosses several pixel and
+    vertex chunks of the split passes, the ties that straddle chunk and
+    group boundaries go to the first index."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    gt, mask, pred = (t.cuda() for t in _t(*_case(rng, 3, 3000, 700)))
-    mask[1] = 0.0
-    ref = cc.chamfer_bwd_parts_reference(gt, mask, pred)
-    for f32_index in (False, True):
-        out = cc.chamfer_bwd_parts(gt, mask, pred, with_value=True, f32_index=f32_index)
-        again = cc.chamfer_bwd_parts(gt, mask, pred, with_value=True, f32_index=f32_index)
-        assert torch.equal(out.l1_grad, ref.l1_grad)
-        assert float((out.l2_grad - ref.l2_grad).abs().max()) <= 1e-6
-        np.testing.assert_allclose(out.l1_value.cpu().numpy(), ref.l1_value.cpu().numpy(), rtol=1e-5)
-        for a, b in zip(out, again):
-            assert torch.equal(a, b)
-    k3 = cc.chamfer_bwd_parts(gt, mask, pred, with_value=False)
-    assert k3.l1_value is None and torch.equal(k3.l1_grad, ref.l1_grad)
+    tiling = cc.bwd_tiling()
+    vc, group = tiling["vertex_chunk"], tiling["group"]
+    crossing = _chunk_crossing_case(rng, tiling["pixel_chunk"], vc, group)
+    for case in (_case(rng, 3, 3000, 700), crossing):
+        gt, mask, pred = (t.cuda() for t in _t(*case))
+        if case is not crossing:
+            mask[1] = 0.0
+        ref = cc.chamfer_bwd_parts_reference(gt, mask, pred)
+        for f32_index in (False, True):
+            out = cc.chamfer_bwd_parts(gt, mask, pred, with_value=True, f32_index=f32_index)
+            again = cc.chamfer_bwd_parts(gt, mask, pred, with_value=True, f32_index=f32_index)
+            assert torch.equal(out.l1_grad, ref.l1_grad)
+            assert torch.equal(out.vmin, ref.vmin)
+            assert float((out.l2_grad - ref.l2_grad).abs().max()) <= 1e-6
+            np.testing.assert_allclose(out.l1_value.cpu().numpy(), ref.l1_value.cpu().numpy(), rtol=1e-5)
+            for a, b in zip(out, again):
+                assert torch.equal(a, b)
+        k3 = cc.chamfer_bwd_parts(gt, mask, pred, with_value=False)
+        assert k3.l1_value is None and torch.equal(k3.l1_grad, ref.l1_grad)
+    for first in (vc - 1, vc + group - 1):
+        assert out.l1_grad[0, first].tolist() == [1.0, 1.0] and out.l1_grad[0, first + 1].tolist() == [0.0, 0.0]
+    for vert in (0, 1, 2):
+        assert out.l1_grad[1, vert].tolist() == [-2.0, -2.0]
+        np.testing.assert_allclose(out.l2_grad[1, vert].cpu().numpy(), [-0.6, -0.8], rtol=0, atol=1e-6)
     q = pred.clone().requires_grad_()
     before = cc.VALUE_GRAD_LAUNCHES
     cc.chamfer(gt, mask, q).sum().backward()
