@@ -7,9 +7,9 @@ Builds the port's CUDA kernels from the sources in this checkout (one
 ``nvcc`` per source, in parallel), holds each against its plain PyTorch
 version at the shape of the main path (K1, the value-only chamfer; K2/K3,
 the value-and-gradient chamfer and its gradient-only launch; K4, K2 with
-f32 index carriers; with exact ties inside and across the chunks of K2's
-split passes) and prints K2's device time per launch of its four kernels,
-then drives the port's main path at full width: the
+f32 index carriers; with exact ties inside and across the chunks of the
+split passes) and prints K1's and K2's device time per launch of their
+kernels, then drives the port's main path at full width: the
 serving ``Predictor``, the evaluation ``make_val_step`` and the training
 ``make_train_step``, counting each kernel's launches over the three; and
 last holds one f64 training step on the card against the same step on the
@@ -88,7 +88,7 @@ def _time_cuda(fn, iters: int, warmup: int = 3, queued: bool = False, batch: int
     return total_ms / iters
 
 
-K1_KERNELS = ("gt_to_pred_kernel", "pred_to_gt_kernel")
+K1_KERNELS = ("fwd_count", "fwd_pixel_pass", "fwd_pixel_merge", "fwd_vertex_pass", "fwd_vertex_merge", "fwd_finish")
 K2_KERNELS = ("assign_kernel", "assign_merge_kernel", "vertex_kernel", "vertex_merge_kernel")
 
 
@@ -203,24 +203,61 @@ def _pred_to_gt_library_ms(torch, cc, gt, mask, pred, iters, with_indices):
     return _time_cuda(lambda: torch.cdist(pred, gt_far).amin(dim=2), iters=iters)
 
 
+def _check_fwd_parts(torch, tag, out, again, ref, ref_value, rtol=1e-5):
+    """K1's (value, L1, vmin) against the plain version's (L1, vmin) and
+    value: vmin bit-equal, L1 and value within ``rtol`` (summed in another
+    order) and finite, two runs bit-identical; returns the value's max
+    absolute error."""
+    value, l1, vmin = out
+    for a, b, field in zip(out, again, ("value", "L1", "vmin")):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag}: two runs differ in {field}")
+    if not torch.equal(vmin, ref[1]):
+        raise AssertionError(f"{tag}: vmin is not bit-equal to the plain version")
+    for a, b, field in ((l1, ref[0], "L1"), (value, ref_value, "value")):
+        if bool(((a - b).abs() > rtol * b.abs()).any()) or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{tag}: the {field} {a.tolist()} differs from the plain version's {b.tolist()}")
+    return float((value - ref_value).abs().max())
+
+
+def _k1_tie(torch, first, v):
+    """One image whose one weighted pixel, at (-100, -100), is exactly d=25
+    from vertices ``first`` (L1 7) and ``first + 1`` (L1 5), and d=100 from
+    the other ``v - 2``: the value is 7 + 10 (v - 2) + 5 + 5 when the first
+    vertex wins, 2 less when the second does. Exact in f32."""
+    gt = torch.zeros(1, 8, 2, device="cuda")
+    gt[0, 0] = torch.tensor([-100.0, -100.0])
+    mask = torch.zeros(1, 8, device="cuda")
+    mask[0, 0] = 1.0
+    pred = torch.tensor([-90.0, -100.0], device="cuda").repeat(1, v, 1)
+    pred[0, first] = torch.tensor([-97.0, -96.0])
+    pred[0, first + 1] = torch.tensor([-95.0, -100.0])
+    return (gt, mask, pred), 7.0 + 10.0 * (v - 2) + 10.0
+
+
 def phase_kernel(torch, cc, card):
-    """K1 against its plain version on the card at the evaluation shape."""
+    """K1 against its plain version on the card at the evaluation shape:
+    vmin bit-equal, the L1 and the value within rtol 1e-5, two runs
+    bit-identical, an empty mask's value 0, and exact ties in isolation
+    (vertices 0 and 1, the value 17; across a vertex-chunk boundary and
+    across a group boundary inside a vertex chunk of the pixel pass) on the
+    first vertex;
+    then its times and its device time per launch of its kernels."""
     gt, mask, pred = _kernel_inputs(torch)
     n, p, _ = gt.shape
     v = pred.shape[1]
-    out = cc.chamfer_forward(gt, mask, pred)
-    ref = cc.chamfer_forward_reference(gt, mask, pred)
+    ref = cc.chamfer_forward_parts_reference(gt, mask, pred)
+    ref_value = cc.chamfer_forward_reference(gt, mask, pred)
+    run = lambda: (cc.chamfer_forward(gt, mask, pred), *cc.chamfer_forward_parts(gt, mask, pred))
+    out, again = run(), run()
     torch.cuda.synchronize()
-    err = (out - ref).abs()
     rtol = 1e-5
-    bad = err > rtol * ref.abs()
-    if bool(bad.any()) or not bool(torch.isfinite(out).all()):
-        raise AssertionError(f"K1 disagrees with its plain version: {out.tolist()} vs {ref.tolist()}")
-    if float(out[5]) != 0.0:
-        raise AssertionError(f"K1 on an empty mask gave {float(out[5])}, not 0")
+    max_err = _check_fwd_parts(torch, "K1", out, again, ref, ref_value, rtol)
+    if float(out[0][5]) != 0.0:
+        raise AssertionError(f"K1 on an empty mask gave {float(out[0][5])}, not 0")
 
-    # the exact tie in isolation: L1 of the FIRST nearest vertex (7) plus
-    # the two pred->gt distances (5 + 5)
+    # the exact ties in isolation: L1 of the FIRST nearest vertex (7) plus
+    # the two pred->gt distances (5 + 5), and 10 for every other vertex
     tie_gt = torch.zeros(1, 8, 2, device="cuda")
     tie_mask = torch.zeros(1, 8, device="cuda")
     tie_mask[0, 0] = 1.0
@@ -228,18 +265,32 @@ def phase_kernel(torch, cc, card):
     tie = float(cc.chamfer_forward(tie_gt, tie_mask, tie_pred)[0])
     if tie != 17.0:
         raise AssertionError(f"K1 tie case gave {tie}, not 17")
+    tiling = cc.fwd_tiling()
+    vc, group = tiling["vertex_chunk"], tiling["group"]
+    ties = {"across a vertex chunk": vc - 1, "across a group": vc + group - 1}
+    for where, first in ties.items():
+        inputs, want = _k1_tie(torch, first, first + 2 + group)
+        got = float(cc.chamfer_forward(*inputs)[0])
+        if got != want:
+            raise AssertionError(f"K1 tie {where} (vertices {first}, {first + 1}) gave {got}, not {want}")
 
-    ms = _time_cuda(lambda: cc.chamfer_forward(gt, mask, pred), iters=100)
-    device_ms = _time_cuda(lambda: cc.chamfer_forward(gt, mask, pred), iters=100, queued=True)
+    fn = lambda: cc.chamfer_forward(gt, mask, pred)
+    ms = _time_cuda(fn, iters=100)
+    device_ms = _time_cuda(fn, iters=100, queued=True)
     plain_ms = _time_cuda(lambda: cc.chamfer_forward_reference(gt, mask, pred), iters=5, warmup=1)
     library_ms = _pred_to_gt_library_ms(torch, cc, gt, mask, pred, iters=20, with_indices=False)
     valid = float(mask.sum())
     bound_ms, bound_by = _bound(torch, cc, gt, mask, pred, out_bytes=n * 4)
+    split = _per_launch_ms(torch, fn, 20, K1_KERNELS)
+    splits = ", ".join(f"{k} {split[k][0]:.4f} ms x{split[k][1]}" for k in K1_KERNELS if k in split)
     print(
-        f"[kernel] K1 chamfer_fwd N={n} P={p} V={v} valid={int(valid)}: "
-        f"max_abs_err={float(err.max()):.3e} (rtol {rtol}) ms={ms:.4f} (back to back) "
+        f"[kernel] K1 chamfer_fwd N={n} P={p} V={v} valid={int(valid)}: vmin bit-equal, repeatable, "
+        f"empty mask 0, ties on the first vertex (17; {', '.join(f'{w} at {f}' for w, f in ties.items())}) | "
+        f"max_abs_err={max_err:.3e} (rtol {rtol}) ms={ms:.4f} (back to back) "
         f"device_ms={device_ms:.4f} (queued ahead of the device) plain_ms={plain_ms:.4f} "
-        f"cdist_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) on {card}",
+        f"cdist_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) | per launch over 20 calls "
+        f"(profiler): {splits or 'not measured (the profiler saw no CUDA kernel)'} | tiling {tiling}, "
+        f"resident warps per SM {cc.fwd_resident_warps()} | on {card}",
         flush=True,
     )
     return {
@@ -247,7 +298,7 @@ def phase_kernel(torch, cc, card):
         "route": "cuda",
         "source": "human_pose_estimation_tpu_torch/csrc/chamfer_fwd.cu",
         "replaces": "human_pose_estimation_tpu/ops/pallas_chamfer.py:56",
-        "max_abs_err": float(err.max()),
+        "max_abs_err": max_err,
         "ms": ms,
         "device_ms": device_ms,
         "plain_ms": plain_ms,

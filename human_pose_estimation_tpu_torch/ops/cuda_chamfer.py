@@ -16,8 +16,11 @@ and the image's value is 0 when its mask is empty.
 
 Kernels (``csrc/``):
 
-* K1 ``chamfer_fwd.cu`` (``chamfer_forward``): the value only, the
-  forward kernel ``_kernel`` / ``_chamfer_forward``. Evaluation runs it.
+* K1 ``chamfer_fwd.cu`` (``chamfer_forward``; ``chamfer_forward_parts``
+  for the L1 and ``vmin`` before the epilogue): the value only, the
+  forward kernel ``_kernel`` / ``_chamfer_forward``, in one call of six
+  launches (the last active pixels, two passes split into chunks and each
+  merged in chunk order, the epilogue). Evaluation runs it.
 * K2 ``chamfer_bwd.cu`` (``chamfer_value_and_grad``): value and the
   gradient with respect to ``pred`` in one call of four launches (two
   passes split into chunks, each merged in chunk order), ``_bwd_kernel``
@@ -67,11 +70,15 @@ __all__ = [
     "chamfer_bwd_parts",
     "chamfer_bwd_parts_reference",
     "chamfer_forward",
+    "chamfer_forward_parts",
+    "chamfer_forward_parts_reference",
     "chamfer_forward_reference",
     "chamfer_grad",
     "chamfer_grad_reference",
     "chamfer_value_and_grad",
     "chamfer_value_and_grad_reference",
+    "fwd_resident_warps",
+    "fwd_tiling",
     "last_active",
 ]
 
@@ -100,7 +107,7 @@ _lib_bwd = None  # the loaded chamfer_bwd library
 BUILD_SECONDS = {}  # source name -> wall time of the nvcc call that built it
 BUILD_LOG = {}  # source name -> nvcc's output (ptxas registers / shared memory / spills)
 _NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"  # where the CUDA toolkit puts it
-_MAX_GRID_Y = 65535  # images ride on gridDim.y (K1) or gridDim.z (K2), which CUDA caps here
+_MAX_GRID_Y = 65535  # images ride on gridDim.y or gridDim.z, which CUDA caps here
 
 
 def _nvcc() -> str:
@@ -149,18 +156,45 @@ def _compile(names) -> None:
 def build() -> ctypes.CDLL:
     """Compile (once per source version) and load the K1 library."""
     global _lib
-    if _lib is not None:
-        return _lib
-    _compile(["chamfer_fwd"])
-    lib = ctypes.CDLL(str(_lib_path("chamfer_fwd")))
-    lib.chamfer_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p
-    ] * 3
+    if _lib is None:
+        _compile(["chamfer_fwd"])
+        _lib = _load_fwd(_lib_path("chamfer_fwd"))
+    return _lib
+
+
+def _load_fwd(path) -> ctypes.CDLL:
+    """Load a library built from ``csrc/chamfer_fwd.cu`` and declare its C
+    interface."""
+    lib = ctypes.CDLL(str(path))
+    lib.chamfer_fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
     lib.chamfer_fwd.restype = ctypes.c_int
-    lib.chamfer_fwd_num_pixel_blocks.argtypes = [ctypes.c_int]
-    lib.chamfer_fwd_num_pixel_blocks.restype = ctypes.c_int
-    _lib = lib
+    lib.chamfer_fwd_scratch_bytes.argtypes = [ctypes.c_int] * 3
+    lib.chamfer_fwd_scratch_bytes.restype = ctypes.c_longlong
+    lib.chamfer_fwd_tiling.argtypes = [ctypes.c_void_p]
+    lib.chamfer_fwd_tiling.restype = None
+    lib.chamfer_fwd_resident_warps.argtypes = [ctypes.c_void_p]
+    lib.chamfer_fwd_resident_warps.restype = ctypes.c_int
     return lib
+
+
+def fwd_tiling(lib: Optional[ctypes.CDLL] = None) -> dict:
+    """The compiled sizes of a K1 library (the default build if None):
+    pixel chunk and vertex chunk of its two split passes, pixels and
+    vertices held per thread, and the group in which the pixel pass keeps
+    the first index of its min."""
+    out = (ctypes.c_int * 5)()
+    (lib or build()).chamfer_fwd_tiling(out)
+    return dict(zip(("pixel_chunk", "vertex_chunk", "pixels_per_thread", "verts_per_thread", "group"), out))
+
+
+def fwd_resident_warps(lib: Optional[ctypes.CDLL] = None) -> dict:
+    """Resident warps per SM of K1's kernels, from the CUDA occupancy
+    calculator on the current device."""
+    out = (ctypes.c_int * 6)()
+    err = (lib or build()).chamfer_fwd_resident_warps(out)
+    if err != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor failed: cudaError {err}")
+    return dict(zip(("count", "pixel_pass", "pixel_merge", "vertex_pass", "vertex_merge", "finish"), out))
 
 
 def build_bwd() -> ctypes.CDLL:
@@ -252,20 +286,20 @@ def _epilogue(l1: torch.Tensor, vmin: torch.Tensor, gt_mask: torch.Tensor) -> to
     return torch.where(has_gt, l1 + l2, torch.zeros_like(l1))
 
 
-def chamfer_forward_reference(
+def chamfer_forward_parts_reference(
     gt_points: torch.Tensor,  # (N, P, 2)
     gt_mask: torch.Tensor,  # (N, P)
     pred_points: torch.Tensor,  # (N, V, 2)
     chunk: int = 1024,
-) -> torch.Tensor:
-    """(N,) unnormalized bidirectional chamfer distances, in plain torch.
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of K1's two directions before the epilogue: the
+    (N,) masked gt->pred L1 sum and the (N, V) pred->gt ``vmin``.
 
     The kernel's arithmetic, chunked over pixels so that the field fits on
     the card at the production shape (the whole (8, 16384, 6890) f32 field
     would be 3.6 GB per tensor): the direct form ``dx*dx + dy*dy`` (not the
-    expanded form of the JAX ``chamfer_loss``), first-index ties, the same
-    1e30 sentinel and the same empty-mask guard. Compute is f32 for any
-    input dtype.
+    expanded form of the JAX ``chamfer_loss``), first-index ties and the
+    same 1e30 sentinel. Compute is f32 for any input dtype.
     """
     _check(gt_points, gt_mask, pred_points)
     gt = gt_points.float()
@@ -290,7 +324,35 @@ def chamfer_forward_reference(
         # pred -> gt: running min over masked pixels
         d_masked = torch.where(m[:, :, None] > 0, d, torch.full_like(d, BIG))
         vmin = torch.minimum(vmin, d_masked.amin(dim=1))
-    return _epilogue(l1, vmin, mask)
+    return l1, vmin
+
+
+def chamfer_forward_reference(
+    gt_points: torch.Tensor,  # (N, P, 2)
+    gt_mask: torch.Tensor,  # (N, P)
+    pred_points: torch.Tensor,  # (N, V, 2)
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """(N,) unnormalized bidirectional chamfer distances, in plain torch:
+    ``chamfer_forward_parts_reference`` and the empty-mask guard."""
+    l1, vmin = chamfer_forward_parts_reference(gt_points, gt_mask, pred_points, chunk)
+    return _epilogue(l1, vmin, gt_mask.float())
+
+
+def _forward_cuda(gt_points, gt_mask, pred_points, parts: bool):
+    """K1 on CUDA tensors, counted in ``LAUNCHES``: (value, L1, vmin), the
+    last two only with ``parts``."""
+    global LAUNCHES
+    if pred_points.requires_grad:
+        raise NotImplementedError(
+            "chamfer_forward is the value-only kernel; take the gradient "
+            "through chamfer() / ChamferFunction"
+        )
+    if gt_points.shape[0] > _MAX_GRID_Y:
+        raise ValueError(f"the kernel takes at most {_MAX_GRID_Y} images per call")
+    out = _launch_fwd(build(), gt_points, gt_mask, pred_points, parts)
+    LAUNCHES += 1
+    return out
 
 
 def chamfer_forward(
@@ -306,36 +368,54 @@ def chamfer_forward(
     ``pred`` that requires a gradient is refused (``chamfer`` is the
     differentiable entry).
     """
-    global LAUNCHES
     _check(gt_points, gt_mask, pred_points)
     if not _on_cuda(gt_points):
         return chamfer_forward_reference(gt_points, gt_mask, pred_points)
-    if pred_points.requires_grad:
-        raise NotImplementedError(
-            "chamfer_forward is the value-only kernel; take the gradient "
-            "through chamfer() / ChamferFunction"
-        )
-    if gt_points.shape[0] > _MAX_GRID_Y:
-        raise ValueError(f"the kernel takes at most {_MAX_GRID_Y} images per call")
-    lib = build()
+    return _forward_cuda(gt_points, gt_mask, pred_points, parts=False)[0]
+
+
+def chamfer_forward_parts(
+    gt_points: torch.Tensor,  # (N, P, 2)
+    gt_mask: torch.Tensor,  # (N, P)
+    pred_points: torch.Tensor,  # (N, V, 2)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's two directions before the epilogue: the (N,) masked gt->pred
+    L1 sum and the (N, V) pred->gt ``vmin``, as
+    ``chamfer_forward_parts_reference`` computes them. CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    _check(gt_points, gt_mask, pred_points)
+    if not _on_cuda(gt_points):
+        return chamfer_forward_parts_reference(gt_points, gt_mask, pred_points)
+    _, l1, vmin = _forward_cuda(gt_points, gt_mask, pred_points, parts=True)
+    return l1, vmin
+
+
+def _launch_fwd(lib, gt_points, gt_mask, pred_points, parts: bool):
+    """One call of the K1 library ``lib`` on CUDA tensors: (value, L1,
+    vmin), the last two only with ``parts``. The library computes the
+    last active pixels, both directions and the epilogue; the wrapper
+    only allocates the scratch and the outputs with ``torch.empty`` at the
+    sizes the library reports. The kernels run on the current stream, with
+    no host synchronisation."""
     gt = gt_points.detach().float().contiguous()
     mask = gt_mask.detach().float().contiguous()
     pred = pred_points.detach().float().contiguous()
     n, p, _ = gt.shape
     v = pred.shape[1]
-    counts = last_active(mask).contiguous()
-    partial = torch.empty((n, lib.chamfer_fwd_num_pixel_blocks(p)), device=gt.device)
-    vmin = torch.empty((n, v), device=gt.device)
-    with torch.cuda.device(gt.device):
-        stream = torch.cuda.current_stream(gt.device).cuda_stream
+    dev = gt.device
+    scratch = torch.empty(lib.chamfer_fwd_scratch_bytes(n, p, v), device=dev, dtype=torch.uint8)
+    value = torch.empty(n, device=dev)
+    l1 = torch.empty(n, device=dev) if parts else None
+    vmin = torch.empty((n, v), device=dev) if parts else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.chamfer_fwd(
-            gt.data_ptr(), mask.data_ptr(), pred.data_ptr(), counts.data_ptr(),
-            n, p, v, partial.data_ptr(), vmin.data_ptr(), stream,
+            gt.data_ptr(), mask.data_ptr(), pred.data_ptr(), n, p, v, scratch.data_ptr(), value.data_ptr(),
+            l1.data_ptr() if parts else None, vmin.data_ptr() if parts else None, stream,
         )
     if err != 0:
         raise RuntimeError(f"chamfer_fwd launch failed: cudaError {err}")
-    LAUNCHES += 1
-    return _epilogue(partial.sum(dim=1), vmin, mask)
+    return value, l1, vmin
 
 
 class BwdParts(NamedTuple):

@@ -137,6 +137,42 @@ def test_cuda_path_refuses_what_the_kernel_does_not_take(monkeypatch):
         cc.chamfer_forward(torch.zeros(n, 1, 2), torch.ones(n, 1), torch.zeros(n, 1, 2))
 
 
+def test_parts_take_plain_version_on_cpu(rng):
+    """``chamfer_forward_parts`` on CPU tensors is the plain version's
+    (L1, vmin), with no launch counted, and the value is their epilogue."""
+    gt = torch.from_numpy((rng.rand(3, 40, 2) * 50).astype(np.float32))
+    mask = torch.from_numpy((rng.rand(3, 40) > 0.4).astype(np.float32))
+    mask[1] = 0.0
+    pred = torch.from_numpy((rng.rand(3, 25, 2) * 50).astype(np.float32))
+    before = cc.LAUNCHES
+    l1, vmin = cc.chamfer_forward_parts(gt, mask, pred)
+    ref_l1, ref_vmin = cc.chamfer_forward_parts_reference(gt, mask, pred)
+    assert cc.LAUNCHES == before
+    assert torch.equal(l1, ref_l1) and torch.equal(vmin, ref_vmin)
+    assert bool((vmin[1] == cc.BIG).all()) and float(l1[1]) == 0.0
+    l2 = torch.where(vmin < cc.BIG / 2, vmin.clamp_min(0.0).sqrt(), torch.zeros(())).sum(dim=1)
+    np.testing.assert_array_equal(cc.chamfer_forward(gt, mask, pred).numpy(), (l1 + l2).numpy() * [1, 0, 1])
+
+
+def test_cuda_tensors_never_take_the_plain_forward(monkeypatch):
+    """On (patched) CUDA tensors ``chamfer_forward`` and
+    ``chamfer_forward_parts`` go to the K1 build, and a failed build raises
+    rather than falling back to the plain version."""
+    monkeypatch.setattr(cc, "_on_cuda", lambda t: True)
+    for plain in ("chamfer_forward_reference", "chamfer_forward_parts_reference", "_epilogue", "last_active"):
+        monkeypatch.setattr(cc, plain, lambda *a, **k: pytest.fail("plain version taken"))
+
+    def no_build():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(cc, "build", no_build)
+    args = (torch.zeros(1, 8, 2), torch.ones(1, 8), torch.zeros(1, 4, 2))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cc.chamfer_forward(*args)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cc.chamfer_forward_parts(*args)
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(cc, "_lib", None)
     monkeypatch.setattr(cc, "_BUILD_DIR", tmp_path)
@@ -146,28 +182,78 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         cc.build()
 
 
+def _tie_image(first: int, v: int):
+    """One image whose one weighted pixel, at (-100, -100), is exactly d=25
+    from vertices ``first`` (L1 7) and ``first + 1`` (L1 5) and d=100 from
+    the other ``v - 2``: the value is 7 + 10 (v - 2) + 5 + 5 when the first
+    vertex wins."""
+    gt = np.zeros((1, 8, 2), np.float32)
+    gt[0, 0] = [-100.0, -100.0]
+    mask = np.zeros((1, 8), np.float32)
+    mask[0, 0] = 1.0
+    pred = np.tile(np.float32([-90.0, -100.0]), (1, v, 1))
+    pred[0, first] = [-97.0, -96.0]
+    pred[0, first + 1] = [-95.0, -100.0]
+    return (gt, mask, pred), 7.0 + 10.0 * (v - 2) + 10.0
+
+
+def test_tie_image_values():
+    """The tie images of the card test, through the plain version and the
+    Pallas kernel in interpret mode: exactly the first vertex's value."""
+    for first in (0, 5, 20):
+        (gt, mask, pred), want = _tie_image(first, first + 18)
+        np.testing.assert_array_equal(_port(gt, mask, pred), [want])
+        pallas = chamfer_pallas(jnp.asarray(gt), jnp.asarray(mask), jnp.asarray(pred), 8, True)
+        np.testing.assert_array_equal(np.asarray(pallas), [want])
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_version_on_card(rng):
-    """The CUDA kernel against its plain version on the card: bit-equal
-    distances, so equal up to the order of the L1 sum (rtol 1e-5)."""
+    """The CUDA kernel against its plain version on the card: vmin bit for
+    bit, the L1 and the value up to the order of their sums (rtol 1e-5),
+    two runs bit-identical; at a second shape that crosses several pixel
+    and vertex chunks of the split passes, with exact ties across the
+    library's vertex-chunk boundary and across a group boundary inside a
+    chunk, each tie's value exactly the first vertex's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    tiling = cc.fwd_tiling()
+    pc, vc, group = tiling["pixel_chunk"], tiling["vertex_chunk"], tiling["group"]
     n, p, v = 3, 3000, 700
     gt = torch.from_numpy((rng.rand(n, p, 2) * 224).astype(np.float32)).cuda()
     mask = torch.from_numpy((rng.rand(n, p) > 0.3).astype(np.float32)).cuda()
     mask[1] = 0.0
     pred = torch.from_numpy((rng.rand(n, v, 2) * 224).astype(np.float32)).cuda()
-    before = cc.LAUNCHES
-    out = cc.chamfer_forward(gt, mask, pred)
-    assert cc.LAUNCHES == before + 1
-    ref = cc.chamfer_forward_reference(gt, mask, pred)
-    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=1e-5)
-    assert float(out[1]) == 0.0
+    crossing = [
+        torch.from_numpy(a).cuda()
+        for a in (
+            (rng.rand(2, 3 * pc + pc // 3, 2) * 64).astype(np.float32),
+            (rng.rand(2, 3 * pc + pc // 3) > 0.3).astype(np.float32),
+            (rng.rand(2, 3 * vc + vc // 10, 2) * 64).astype(np.float32),
+        )
+    ]
+    crossing[1][1, : pc + 5] = 0.0  # the first chunks of image 1 are empty
+    for case in ((gt, mask, pred), crossing):
+        before = cc.LAUNCHES
+        out = cc.chamfer_forward(*case)
+        l1, vmin = cc.chamfer_forward_parts(*case)
+        assert cc.LAUNCHES == before + 2
+        ref_l1, ref_vmin = cc.chamfer_forward_parts_reference(*case)
+        assert torch.equal(vmin, ref_vmin)
+        np.testing.assert_allclose(l1.cpu().numpy(), ref_l1.cpu().numpy(), rtol=1e-5)
+        ref = cc.chamfer_forward_reference(*case)
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=1e-5)
+        assert torch.equal(out, cc.chamfer_forward(*case))
+        assert torch.equal(vmin, cc.chamfer_forward_parts(*case)[1])
+    assert float(cc.chamfer_forward(gt, mask, pred)[1]) == 0.0
     tie = cc.chamfer_forward(
         torch.zeros(1, 8, 2, device="cuda"),
         torch.tensor([[1.0] + [0.0] * 7], device="cuda"),
         torch.tensor([[[3.0, 4.0], [5.0, 0.0]]], device="cuda"),
     )
     assert float(tie[0]) == 17.0
+    for first in (vc - 1, vc + group - 1):
+        inputs, want = _tie_image(first, first + 2 + group)
+        assert float(cc.chamfer_forward(*(torch.from_numpy(a).cuda() for a in inputs))[0]) == want
     with pytest.raises(NotImplementedError):
         cc.chamfer_forward(gt, mask, pred.clone().requires_grad_(True))

@@ -1,7 +1,9 @@
-"""The split decomposition of the chamfer value-and-gradient kernels
-(K2/K3/K4, ``csrc/chamfer_bwd.cu``) as a plain torch model, held against
-the plain version (``chamfer_bwd_parts_reference``) and against the Pallas
-kernel in interpret mode.
+"""The split decompositions of the chamfer kernels as plain torch models:
+the value-and-gradient kernels (K2/K3/K4, ``csrc/chamfer_bwd.cu``) held
+against their plain version (``chamfer_bwd_parts_reference``), and the
+value-only kernel (K1, ``csrc/chamfer_fwd.cu``, the end of this file) held
+against its own (``chamfer_forward_parts_reference``); each also against
+its Pallas kernel in interpret mode.
 
 The CUDA source runs the pass as four launches. Within a chunk it walks
 the vertices (or pixels) by groups of ``kGroup``, counted from the chunk's
@@ -44,12 +46,20 @@ import torch
 
 import jax.numpy as jnp
 
-from human_pose_estimation_tpu.ops.pallas_chamfer import _run_bwd_kernel
+from human_pose_estimation_tpu.ops.pallas_chamfer import _chamfer_forward, _run_bwd_kernel
 from human_pose_estimation_tpu_torch.ops import cuda_chamfer as cc
 
 N, P, V = 4, 128, 112
+
+
+def _source_group(name: str) -> int:
+    """The ``kGroup`` that a kernel source is compiled with."""
+    return int(re.search(r"constexpr int kGroup = (\d+);", (cc._CSRC / name).read_text()).group(1))
+
+
 # pixels or vertices per group of the kernels' bookkeeping of the first index
-GROUP = int(re.search(r"constexpr int kGroup = (\d+);", (cc._CSRC / "chamfer_bwd.cu").read_text()).group(1))
+GROUP = _source_group("chamfer_bwd.cu")
+FWD_GROUP = _source_group("chamfer_fwd.cu")  # vertices per group of K1's pixel pass
 # (pixel chunk, vertex chunk): 1, 7 and 64, and 48, which divides neither P nor V
 CHUNKS = [(1, 1), (7, 7), (64, 64), (48, 48), (7, 64), (64, 7)]
 
@@ -77,12 +87,14 @@ def _first_group(mins: torch.Tensor, dim: int, start: float):
     return best, at
 
 
-def _first_equal(d: torch.Tensor, start: torch.Tensor, target: torch.Tensor, eligible: torch.Tensor, dim: int):
-    """Index of the first of the GROUP entries of ``d`` along ``dim`` from
-    ``start`` (within the dimension, and ``eligible``) whose value equals
-    ``target``: the merges' rescan of one group."""
+def _first_equal(
+    d: torch.Tensor, start: torch.Tensor, target: torch.Tensor, eligible: torch.Tensor, dim: int, group: int = GROUP
+):
+    """Index of the first of the ``group`` entries of ``d`` along ``dim``
+    from ``start`` (within the dimension, and ``eligible``) whose value
+    equals ``target``: the merges' rescan of one group."""
     size = d.shape[dim]
-    idx = start.unsqueeze(dim) + torch.arange(GROUP).view([GROUP if k == dim else 1 for k in range(d.dim())])
+    idx = start.unsqueeze(dim) + torch.arange(group).view([group if k == dim else 1 for k in range(d.dim())])
     inside = idx < size
     idx = idx.clamp_max(size - 1)
     hit = inside & eligible.expand_as(d).gather(dim, idx) & (d.gather(dim, idx) == target.unsqueeze(dim))
@@ -253,3 +265,134 @@ def test_split_model_matches_pallas(pixel_chunk, vertex_chunk):
     np.testing.assert_allclose(out.vmin.numpy(), np.asarray(vmin), rtol=1e-6)
     np.testing.assert_allclose(out.l1_value.numpy(), np.asarray(l1v), rtol=1e-5)
     _check_ties(out, k, j)
+
+
+# K1, the value-only kernel (csrc/chamfer_fwd.cu). Its pixel pass and pixel
+# merge are K2's assign pass and assign merge, with its own kGroup; its
+# vertex pass keeps only the min; a count launch before the passes and a
+# finish launch after them do what the wrapper did in torch:
+#
+# 0. count: per image, one past the last pixel with mask > 0 and whether
+#    the mask sums above 0;
+# 1. pixel pass: per (pixel, vertex chunk), the chunk's min ``d`` and the
+#    first group of FWD_GROUP vertices that reaches it;
+# 2. pixel merge: the first vertex chunk at the min (strict ``<``), the
+#    first vertex of its group whose ``d`` equals it, and the pixel's
+#    ``(|dx| + |dy|) * mask`` there, for the walked pixels with mask != 0;
+# 3. vertex pass: per (vertex, pixel chunk), the min of ``d`` over the
+#    walked pixels with mask > 0 and 1e30;
+# 4. vertex merge: the min over the walked chunks, and ``sqrt(vmin)`` where
+#    a pixel was found;
+# 5. finish: the L1 and the sqrt terms summed, 0 where the mask does not
+#    sum above 0.
+
+
+def split_forward_model(gt, mask, pred, pixel_chunk: int, vertex_chunk: int):
+    """The launches of csrc/chamfer_fwd.cu in plain torch: (N,) value, (N,)
+    L1 and (N, V) vmin."""
+    gt, mask, pred = gt.float(), mask.float(), pred.float()
+    n, p, _ = gt.shape
+    v = pred.shape[1]
+    inf = float("inf")
+    big = torch.full((), cc.BIG)
+
+    # 0. count
+    counts = cc.last_active(mask).long()
+    has_gt = mask.sum(dim=1) > 0
+    walked = torch.arange(p)[None, :] < counts[:, None]  # (N, P)
+    dx = gt[:, :, None, 0] - pred[:, None, :, 0]  # (N, P, V)
+    dy = gt[:, :, None, 1] - pred[:, None, :, 1]
+    d = dx * dx + dy * dy
+
+    # 1. pixel pass
+    dc = _chunked(d, vertex_chunk, 2, inf)  # (N, P, VC, vc)
+    gmin = _chunked(dc, FWD_GROUP, 3, inf).amin(dim=4)  # (N, P, VC, groups)
+    part_d, part_group = _first_group(gmin, 3, inf)  # (N, P, VC)
+
+    # 2. pixel merge
+    dmin, first = _first_group(part_d, 2, inf)
+    j0 = first * vertex_chunk + part_group.gather(2, first[..., None])[..., 0] * FWD_GROUP
+    near = _first_equal(d, j0, dmin, torch.ones(()).bool(), 2, FWD_GROUP)[..., None]
+    l1_near = dx.gather(2, near)[..., 0].abs() + dy.gather(2, near)[..., 0].abs()
+    weighted = walked & (mask != 0) & (dmin < inf)
+    l1 = torch.where(weighted, l1_near * mask, torch.zeros(())).sum(dim=1)
+
+    # 3. vertex pass
+    d_masked = torch.where((walked & (mask > 0))[..., None], d, torch.full((), inf))
+    part_vmin = torch.minimum(_chunked(d_masked, pixel_chunk, 1, inf).amin(dim=2), big)  # (N, PC, V)
+
+    # 4. vertex merge
+    n_walked = (counts + pixel_chunk - 1) // pixel_chunk
+    vmin = big.expand(n, v)
+    for c in range(part_vmin.shape[1]):
+        vmin = torch.where((c < n_walked)[:, None], torch.minimum(vmin, part_vmin[:, c]), vmin)
+    l2 = torch.where(vmin < cc.BIG / 2, torch.sqrt(vmin.clamp_min(0.0)), torch.zeros(())).sum(dim=1)
+
+    # 5. finish
+    value = torch.where(has_gt, l1 + l2, torch.zeros(()))
+    return value, l1, vmin
+
+
+def _fwd_split_case(vertex_chunk: int, seed: int = 0):
+    """Four images: (0) holes throughout, an early end, and fractional and
+    negative weights before it; (1) an empty mask; (2) a mask whose first
+    chunks are all zero and whose last pixel is alone; (3) two weighted
+    pixels only, each exactly d=25 from two vertices with L1 7 (the first)
+    and 5: pixel 0 from vertices k-1 and k, the last of one vertex chunk and
+    the first of the next, and pixel 1 from vertices k+FWD_GROUP-1 and
+    k+FWD_GROUP, across a group boundary inside one chunk where it holds
+    more than a group. Its L1 is 14 when the first vertex wins both ties.
+    Returns numpy arrays and k."""
+    rng = np.random.RandomState(seed)
+    gt = rng.randint(0, 64, (N, P, 2)).astype(np.float32)
+    pred = (rng.rand(N, V, 2) * 64).astype(np.float32)
+    mask = (rng.rand(N, P) > 0.3).astype(np.float32)
+    mask[0] *= rng.choice(np.float32([1.0, 1.0, 0.5, 0.25, -0.5, -2.0]), P)
+    mask[0, 90:] = 0.0
+    mask[0, 89] = 1.0
+    mask[1] = 0.0
+    mask[2] = 0.0
+    mask[2, 100:111] = 1.0
+    mask[2, P - 1] = 1.0
+    mask[3] = 0.0
+    k = _first_boundary(vertex_chunk, 1)
+    gt[3, 0] = [-100.0, -100.0]
+    pred[3, k - 1] = [-97.0, -96.0]  # d = 9 + 16, L1 7
+    pred[3, k] = [-95.0, -100.0]  # d = 25 + 0, L1 5
+    gt[3, 1] = [-500.0, 500.0]
+    pred[3, k + FWD_GROUP - 1] = [-497.0, 504.0]
+    pred[3, k + FWD_GROUP] = [-495.0, 500.0]
+    mask[3, :2] = 1.0
+    assert (mask[0] < 0).any() and ((mask[0] > 0) & (mask[0] < 1)).any() and mask[0].sum() > 0
+    return gt, mask, pred, k
+
+
+@pytest.mark.parametrize("pixel_chunk,vertex_chunk", CHUNKS)
+def test_split_forward_model_matches_plain_version(pixel_chunk, vertex_chunk):
+    """vmin bit for bit (a min has no order), the L1 and the value at rtol
+    1e-5 (summed in another order); the ties on the first vertex; the
+    negative weights count in the pixel direction and not in the vertex
+    direction, as in the plain version."""
+    gt, mask, pred, _ = _fwd_split_case(vertex_chunk)
+    args = [torch.from_numpy(a) for a in (gt, mask, pred)]
+    value, l1, vmin = split_forward_model(*args, pixel_chunk, vertex_chunk)
+    ref_l1, ref_vmin = cc.chamfer_forward_parts_reference(*args, chunk=32)
+    assert torch.equal(vmin, ref_vmin)
+    np.testing.assert_allclose(l1.numpy(), ref_l1.numpy(), rtol=1e-5)
+    np.testing.assert_allclose(value.numpy(), cc.chamfer_forward_reference(*args, chunk=32).numpy(), rtol=1e-5)
+    assert float(value[1]) == 0.0 and bool((vmin[1] == cc.BIG).all())
+    assert float(l1[3]) == 14.0
+    positive = args[1].clamp_min(0.0)
+    assert torch.equal(cc.chamfer_forward_parts_reference(args[0], positive, args[2], chunk=32)[1], vmin)
+    assert abs(float(l1[0]) - float(cc.chamfer_forward_parts_reference(args[0], positive, args[2])[0][0])) > 1.0
+
+
+@pytest.mark.parametrize("pixel_chunk,vertex_chunk", CHUNKS)
+def test_split_forward_model_matches_pallas(pixel_chunk, vertex_chunk):
+    """The value against the Pallas forward kernel in interpret mode, rtol
+    1e-5."""
+    gt, mask, pred, _ = _fwd_split_case(vertex_chunk, seed=1)
+    value, l1, _ = split_forward_model(*(torch.from_numpy(a) for a in (gt, mask, pred)), pixel_chunk, vertex_chunk)
+    pallas = _chamfer_forward(jnp.asarray(gt), jnp.asarray(mask), jnp.asarray(pred), 32, True)
+    np.testing.assert_allclose(value.numpy(), np.asarray(pallas), rtol=1e-5)
+    assert float(value[1]) == 0.0 and float(l1[3]) == 14.0
