@@ -11,11 +11,17 @@ f32 index carriers; with exact ties inside and across the chunks of the
 split passes) and prints K1's and K2's device time per launch of their
 kernels, then drives the port's main path at full width: the
 serving ``Predictor``, the evaluation ``make_val_step`` and the training
-``make_train_step``, counting each kernel's launches over the three; and
-last holds one f64 training step on the card against the same step on the
-CPU. Every phase prints one line; any failure raises and the script exits
-non-zero. The line before the last is a JSON object with one entry per
-ported kernel; the last line is ``{"ok": true, "device": {...}}``.
+``make_train_step``, counting each kernel's launches over the three; then
+the on-device input path: ``make_fused_train_step`` from pinned uint8
+canvases and the raw mocap stream of ``NpzMocapPipeline`` (``[fused-train]``),
+the augmentation and silhouettes on the card against the CPU
+(``[augment-parity]``), ``make_multi_step`` against sequential steps
+(``[multi-step]``) and the rematerialised encoder against the plain one
+(``[remat]``), each with its kernels' launches counted; and last holds one
+f64 training step on the card against the same step on the CPU. Every
+phase prints one line; any failure raises and the script exits non-zero.
+The line before the last is a JSON object with one entry per ported
+kernel; the last line is ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package. Needs one CUDA device and
 exits non-zero without one.
@@ -117,21 +123,27 @@ def _ptxas_summary(log: str) -> str:
     return "; ".join(parts) or "ptxas output not found"
 
 
-def _device_breakdown(torch, fn, wall_ms: float, label: str = "K1", names=K1_KERNELS) -> str:
+def _device_breakdown(torch, fn, wall_ms: float, label: str = "K1", names=K1_KERNELS, span=None) -> str:
     """Summed CUDA kernel time of one call of ``fn`` under torch.profiler,
     against ``wall_ms`` (the same call timed without the profiler): the
     device's busy share, the three largest kernels and the share of the
-    kernels whose names contain one of ``names``."""
+    kernels whose names contain one of ``names``; with ``span``, also the
+    device time of the kernels launched inside the ``record_function``
+    range of that name."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # a record_function range (Optimizer.step, DevicePreprocessor) also has
+    # a CUDA row that spans its kernels on the device's timeline, gaps
+    # included: not device work, so left out as torch's own totals do
     rows = [
         (e.key, e.self_device_time_total / 1e3, e.count)
         for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+        and not getattr(e, "is_user_annotation", False)
     ]
     if not rows:
         return "device time not measured (the profiler saw no CUDA kernel)"
@@ -139,11 +151,57 @@ def _device_breakdown(torch, fn, wall_ms: float, label: str = "K1", names=K1_KER
     ours = sum(r[1] for r in rows if any(k in r[0] for k in names))
     top = sorted(rows, key=lambda r: -r[1])[:3]
     tops = ", ".join(f"{r[0][:48]} {r[1]:.3f} ms x{r[2]}" for r in top)
+    spans = ""
+    if span is not None:
+        span_ms = sum(
+            e.device_time_total / 1e3
+            for e in prof.key_averages()
+            if e.key == span and e.device_type == torch.autograd.DeviceType.CPU
+        )
+        spans = f", {span} {span_ms:.3f} ms" if span_ms > 0 else f", {span} not measured (no device time under it)"
     return (
         f"device busy {busy:.3f} ms of {wall_ms:.3f} ms wall ({100 * busy / wall_ms:.1f}%), "
         f"{sum(r[2] for r in rows)} kernel launches, {label} {ours:.3f} ms "
-        f"({100 * ours / wall_ms:.1f}% of the wall); top: {tops}"
+        f"({100 * ours / wall_ms:.1f}% of the wall){spans}; top: {tops}"
     )
+
+
+def _profiled_device_ms(torch, fn, calls: int = 5):
+    """(device ms per call, launches per call) of ``fn`` over ``calls``
+    calls under torch.profiler: the kernels' and copies' own device time,
+    record_function ranges left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [
+        e for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+        and not getattr(e, "is_user_annotation", False)
+    ]
+    return sum(e.self_device_time_total for e in rows) / 1e3 / calls, sum(e.count for e in rows) / calls
+
+
+def _host_syncs(torch, fn) -> int:
+    """The calls that made the host wait for the device during one call of
+    ``fn``, as torch's synchronisation debug mode reports them (a
+    prototype: it may miss some)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("synchronizing CUDA operation" in str(w.message) for w in caught)
 
 
 def _eval_silhouettes(gen, n, p, counts, img_size):
@@ -726,6 +784,7 @@ def phase_train(torch, cc, card, smpl, mean_theta, num_steps=10):
             )
         return metrics
 
+    torch.cuda.reset_peak_memory_stats()  # the peak of this phase, not of the run so far
     run(*batches[0])  # warm-up: cuDNN plans, allocator
     times, metrics = [], []
     for batch, mocap in batches[1 : num_steps + 1]:
@@ -841,6 +900,318 @@ def phase_train_parity(torch, card, smpl, mean_theta):
     )
 
 
+# a standing figure around (0, 0) in units of its size factor: (centre x,
+# centre y, half width, half height) of the head (an ellipse, first), the
+# torso (an ellipse), the legs and the arms (rectangles); about 4.1k pixels
+# at factor 1
+_FIGURE_ELLIPSES = ((0, -62, 10, 10), (0, -15, 15, 36))
+_FIGURE_BOXES = ((-8, 42, 5, 28), (8, 42, 5, 28), (-22, -20, 5, 25), (22, -20, 5, 25))
+# the 19 cocoplus keypoints on that figure (LSP 14, then nose, eyes, ears)
+_FIGURE_JOINTS = (
+    (-8, 68), (-8, 42), (-8, 15), (8, 15), (8, 42), (8, 68), (-22, 3), (-22, -20), (-18, -45),
+    (18, -45), (22, -20), (22, 3), (0, -50), (0, -72), (0, -62), (3, -65), (-3, -65), (7, -62), (-7, -62),
+)
+
+
+def _host_batches(torch, count, n=8, canvas=256, seed=4):
+    """``count`` HostBatches of ``n`` uint8 ``canvas``-square canvases in
+    pinned memory, as the host pipelines hand them over: random RGB inside
+    a true extent of 200-256 per side, a filled figure in the seg (about
+    3.3k-5.4k pixels, so 2k-9k after a crop at scale 0.8-1.23), its centre
+    near the figure's, and 19 keypoints on it in (3, 19) layout."""
+    import numpy as np
+
+    from human_pose_estimation_tpu_torch.train.step import HostBatch
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[:canvas, :canvas]
+    out = []
+    for _ in range(count):
+        image = rng.randint(0, 256, (n, canvas, canvas, 3)).astype(np.uint8)
+        seg = np.zeros((n, canvas, canvas, 1), np.uint8)
+        hw = rng.randint(200, canvas + 1, (n, 2)).astype(np.int32)
+        center = np.zeros((n, 2), np.int32)
+        label = np.zeros((n, 3, 19), np.float32)
+        for b, (h, w) in enumerate(hw):
+            image[b, h:] = 0
+            image[b, :, w:] = 0
+            cx, cy = w // 2 + rng.randint(-10, 11), h // 2 + rng.randint(-10, 11)
+            k = rng.uniform(0.9, 1.15)
+            fig = np.zeros((canvas, canvas), bool)
+            for ex, ey, ax, ay in _FIGURE_ELLIPSES:
+                fig |= ((xx - cx - k * ex) / (k * ax)) ** 2 + ((yy - cy - k * ey) / (k * ay)) ** 2 < 1.0
+            for bx, by, ax, ay in _FIGURE_BOXES:
+                fig |= (np.abs(xx - cx - k * bx) < k * ax) & (np.abs(yy - cy - k * by) < k * ay)
+            seg[b, ..., 0] = 255 * fig
+            center[b] = cx, cy
+            joints = np.asarray(_FIGURE_JOINTS, np.float32)
+            label[b, 0] = cx + k * joints[:, 0] + rng.randn(19)
+            label[b, 1] = cy + k * joints[:, 1] + rng.randn(19)
+            label[b, 2] = rng.rand(19) > 0.1
+        out.append(HostBatch(*(torch.from_numpy(a).pin_memory() for a in (image, seg, hw, center, label))))
+    return out
+
+
+def _mocap_stream(torch, cfg, smpl, samples, seed=5):
+    """The raw (pose, shape) stream of NpzMocapPipeline (device_forward
+    off, on the card) over a seeded shard written under build/."""
+    import numpy as np
+
+    from human_pose_estimation_tpu_torch.data.npz_dataset import NpzMocapPipeline, write_mocap_npz_shard
+
+    rng = np.random.RandomState(seed)
+    path = os.path.join(HERE, "build", "smoke", "neutrSMPL_smoke_0.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    write_mocap_npz_shard(path, rng.randn(samples, 72) * 0.2, rng.randn(samples, 10) * 0.4)
+    return iter(NpzMocapPipeline(cfg, smpl, [path], device_forward=False, device="cuda"))
+
+
+def _fused_cfg(**kw):
+    from human_pose_estimation_tpu_torch.config import Config
+
+    return Config(
+        batch_size=8, img_size=224, encoder_dtype="bfloat16", use_mesh_repro_loss=True, mr_metric_stages="all",
+        max_silhouette_points=16384, use_gradient_penalty=True, fuse_preprocess=True, **kw,
+    )
+
+
+def _counted_step(torch, cc, fused):
+    """``fused`` with its chamfer launches checked: 3 of K2 and none of K1
+    per step."""
+
+    def run(state, host, raw, gen):
+        k1, k2 = cc.LAUNCHES, cc.VALUE_GRAD_LAUNCHES
+        metrics = fused(state, host, raw, gen)
+        torch.cuda.synchronize()
+        if cc.VALUE_GRAD_LAUNCHES - k2 != 3 or cc.LAUNCHES != k1:
+            raise AssertionError(
+                f"a fused step launched K2 {cc.VALUE_GRAD_LAUNCHES - k2} times (not 3) "
+                f"and K1 {cc.LAUNCHES - k1} times (not 0)"
+            )
+        return metrics
+
+    return run
+
+
+def phase_fused_train(torch, cc, card, smpl, mean_theta, hosts, raws, num_steps=10):
+    """The fused training path: make_fused_train_step at full width
+    (ResNet-50, 224 px, bf16 encoder, batch 8, augmentation on, P=16384,
+    mesh loss on all three IEF stages, gradient penalty on) from pinned
+    uint8 canvases and raw mocap; one warm-up step and ``num_steps`` timed
+    steps."""
+    import numpy as np
+
+    from human_pose_estimation_tpu_torch.data.pipeline import DevicePreprocessor
+    from human_pose_estimation_tpu_torch.train.state import create_train_state
+    from human_pose_estimation_tpu_torch.train.step import make_fused_train_step
+
+    cfg = _fused_cfg()
+    state = create_train_state(smpl, mean_theta, cfg, device="cuda", seed=0)
+    run = _counted_step(torch, cc, make_fused_train_step(cfg, smpl, augment=True, device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    start = {k: [t.detach().clone() for t in ts] for k, ts in _param_groups(state).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    k2_before = cc.VALUE_GRAD_LAUNCHES
+    run(state, hosts[0], raws[0], gen)  # warm-up: cuDNN plans, allocator
+    times, metrics, draws = [], [], []
+    for host, raw in zip(hosts[1 : num_steps + 1], raws[1 : num_steps + 1]):
+        draws.append(gen.get_state())  # the augmentation draws first
+        t0 = time.perf_counter()
+        metrics.append(run(state, host, raw, gen))
+        times.append(time.perf_counter() - t0)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    for m in metrics:
+        for field, value in vars(m).items():
+            if not bool(torch.isfinite(value).all()):
+                raise AssertionError(f"fused training metric {field} is not finite: {value}")
+    for k, ts in _param_groups(state).items():
+        if not any(bool((a != b).any()) for a, b in zip(ts, start[k])):
+            raise AssertionError(f"fused training never moved the {k} parameters")
+
+    # the silhouettes the timed steps trained on: their draws replayed
+    prep = DevicePreprocessor(cfg, augment=True, device="cuda")
+    counts = []
+    for host, drawn in zip(hosts[1:], draws):
+        replay = torch.Generator(device="cuda")
+        replay.set_state(drawn)
+        counts += prep(host._asdict(), replay).seg_mask.sum(dim=1).tolist()
+    if min(counts) < 1000:
+        raise AssertionError(f"a training silhouette has {min(counts)} pixels")
+    prep_gen = torch.Generator(device="cuda").manual_seed(1)
+    prep_ms, prep_launches = _profiled_device_ms(torch, lambda: prep(hosts[1]._asdict(), prep_gen))
+    syncs = _host_syncs(torch, lambda: run(state, hosts[-1], raws[-1], gen))
+
+    wall_ms = 1e3 * float(np.median(times))
+    breakdown = _device_breakdown(
+        torch, lambda: run(state, hosts[-1], raws[-1], gen), wall_ms, "K2", K2_KERNELS, span="DevicePreprocessor"
+    )
+    steps = num_steps + 3  # the warm-up, the timed steps, the profiled step and the step of the sync count
+    if cc.VALUE_GRAD_LAUNCHES - k2_before != 3 * steps:
+        raise AssertionError(f"{steps} fused steps launched K2 {cc.VALUE_GRAD_LAUNCHES - k2_before} times")
+    first, last = metrics[0], metrics[-1]
+    print(
+        f"[fused-train] make_fused_train_step ResNet-50 224px bf16 batch 8 from pinned uint8 256x256 canvases, "
+        f"augmentation on, P=16384 mr on 3 stages, GP on, mocap 24 raw from NpzMocapPipeline: "
+        f"{wall_ms:.2f} ms/step median of {num_steps} (min {1e3 * min(times):.2f}, max {1e3 * max(times):.2f}), "
+        f"K2 launches 3 per step, K1 0, losses finite, all 4 parameter groups moved | silhouettes "
+        f"{int(min(counts))}/{np.mean(counts):.0f}/{int(max(counts))} pixels (min/mean/max of {len(counts)}) | "
+        f"step 1 -> {num_steps}: generator_loss {float(first.generator_loss):.4f} -> "
+        f"{float(last.generator_loss):.4f}, mr[-1] {float(first.mr_losses[-1]):.5f} -> "
+        f"{float(last.mr_losses[-1]):.5f} | peak memory {peak_gib:.2f} GiB | DevicePreprocessor alone "
+        f"(copy, augmentation, silhouettes) {prep_ms:.3f} ms of device time in {prep_launches:.0f} launches "
+        f"per call (profiler, 5 calls) | host syncs in one step: {syncs} (sync debug mode) | one step: "
+        f"{breakdown} | on {card}",
+        flush=True,
+    )
+    return wall_ms
+
+
+def phase_augment_parity(torch, card, host):
+    """augment_batch + extract_silhouette on the card against the same
+    functions on the CPU, full 256x256 canvases to 224 px crops with pinned
+    draws (flip on and off, scales 0.8 / 1.0 / 1.23, non-zero trans), f32:
+    crops, seg crops and labels within atol 1e-5, silhouette points and
+    masks equal element by element (order included) at P=16384 and at a
+    truncating P=1024."""
+    from human_pose_estimation_tpu_torch.data.augment import AugmentConfig, augment_batch, extract_silhouette
+
+    n = host.image.shape[0]
+    cfg = AugmentConfig(out_size=224)
+    overrides = (
+        torch.tensor([[7, -5], [-13, 11], [19, 3], [-20, -20], [1, 17], [-6, 2], [12, -9], [-3, 14]])[:n],
+        torch.tensor([0.8, 1.0, 1.23, 0.8, 1.0, 1.23, 0.91, 1.12])[:n],
+        torch.arange(n) % 2 == 1,
+    )
+
+    def run(dev):
+        args = [t.to(dev) for t in host]
+        crops, segs, labels = augment_batch(*args, None, cfg, overrides=tuple(o.to(dev) for o in overrides))
+        out = [crops, segs, labels, *extract_silhouette(segs, 16384), *extract_silhouette(segs, 1024)]
+        return [t.cpu() for t in out]
+
+    card_out, cpu_out = run("cuda"), run("cpu")
+    errs = {}
+    for name, a, b in zip(("crops", "seg crops", "labels"), card_out[:3], cpu_out[:3]):
+        errs[name] = float((a - b).abs().max())
+        if not errs[name] <= 1e-5:
+            raise AssertionError(f"{name} on the card differ from the CPU by {errs[name]:.3e} (atol 1e-5)")
+    for name, a, b in zip(("points", "mask", "points at P=1024", "mask at P=1024"), card_out[3:], cpu_out[3:]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"silhouette {name} on the card differ from the CPU")
+    counts = card_out[4].sum(dim=1)
+    if int(counts.min()) <= 1024:
+        raise AssertionError(f"a silhouette of {int(counts.min())} pixels does not exercise the truncation")
+    print(
+        f"[augment-parity] augment_batch + extract_silhouette, {n} canvases 256x256 -> 224, scales "
+        f"{overrides[1].tolist()}, flips {overrides[2].int().tolist()}, card vs CPU (f32): max abs err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (atol 1e-5); silhouettes of {counts.int().tolist()} pixels equal element by element, order "
+        f"included, at P=16384 and truncated at P=1024 | on {card}",
+        flush=True,
+    )
+
+
+def _close_losses(got, ref, rtol, what):
+    """The per-step losses of two runs ({field: CPU tensor}): kpr_losses
+    and generator_loss within ``rtol``, critic_loss within ``rtol`` and
+    atol 1e-4 (it can be near zero), as the JAX package's multi-step test
+    holds them."""
+    for field, atol in (("kpr_losses", 0.0), ("generator_loss", 0.0), ("critic_loss", 1e-4)):
+        a, b = got[field].double(), ref[field].double()
+        if not bool(((a - b).abs() <= rtol * b.abs() + atol).all()):
+            raise AssertionError(f"{what}: {field} {a.tolist()} vs {b.tolist()} (rtol {rtol}, atol {atol})")
+
+
+def phase_multi_step(torch, cc, card, smpl, mean_theta, hosts, raws, k=4):
+    """make_multi_step(fused, k) against k sequential fused calls, from two
+    states made from one seed and two generators seeded alike: the first
+    step's losses within rtol 1e-5 (the same inputs), the later ones within
+    5e-3 (cuDNN's backward is not bitwise deterministic, and Adam carries
+    the difference on)."""
+    from human_pose_estimation_tpu_torch.train.state import create_train_state
+    from human_pose_estimation_tpu_torch.train.step import make_fused_train_step, make_multi_step
+
+    cfg = _fused_cfg()
+    fused = make_fused_train_step(cfg, smpl, augment=True, device="cuda")
+    run = _counted_step(torch, cc, fused)
+    seq_state = create_train_state(smpl, mean_theta, cfg, device="cuda", seed=0)
+    multi_state = create_train_state(smpl, mean_theta, cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    t0 = time.perf_counter()
+    seq = [run(seq_state, h, r, gen) for h, r in zip(hosts[:k], raws[:k])]
+    seq_ms = 1e3 * (time.perf_counter() - t0) / k
+    before = cc.VALUE_GRAD_LAUNCHES
+    t0 = time.perf_counter()
+    stacked = make_multi_step(fused, k)(multi_state, hosts[:k], raws[:k], torch.Generator(device="cuda").manual_seed(5))
+    stacked = {f: v.cpu() for f, v in vars(stacked).items()}  # read once, after the k steps
+    multi_ms = 1e3 * (time.perf_counter() - t0) / k
+    if cc.VALUE_GRAD_LAUNCHES - before != 3 * k or multi_state.step != seq_state.step:
+        raise AssertionError("make_multi_step did not run the k steps")
+    rel = []
+    for j, m in enumerate(seq):
+        ref = {f: v.cpu() for f, v in vars(m).items()}
+        got = {f: v[j] for f, v in stacked.items()}
+        _close_losses(got, ref, 1e-5 if j == 0 else 5e-3, f"multi-step, step {j + 1}")
+        rel.append(abs(float(got["generator_loss"] - ref["generator_loss"])) / abs(float(ref["generator_loss"])))
+    print(
+        f"[multi-step] make_multi_step(fused, {k}) vs {k} sequential fused steps, ResNet-50 224px bf16 batch 8: "
+        f"losses of step 1 within rtol 1e-5, steps 2-{k} within 5e-3 (generator_loss rel "
+        f"{', '.join(f'{r:.1e}' for r in rel)}) | {multi_ms:.2f} ms/step multi, {seq_ms:.2f} ms/step sequential "
+        f"(each from a fresh state, first step included) | on {card}",
+        flush=True,
+    )
+
+
+def phase_remat(torch, cc, card, smpl, mean_theta, hosts, raws, timed=3):
+    """One fused step with remat_encoder on against off, from states made
+    from one seed and generators seeded alike: StepMetrics within rtol 1e-5
+    of each field's largest magnitude, the BN running statistics within
+    1e-6 (a second update in the recompute would move each by 1% of its
+    distance from the batch statistics); then ``timed`` more steps each for
+    the times."""
+    import numpy as np
+
+    from human_pose_estimation_tpu_torch.train.state import create_train_state
+    from human_pose_estimation_tpu_torch.train.step import make_fused_train_step
+
+    res = {}
+    for remat in (False, True):
+        cfg = _fused_cfg(remat_encoder=remat)
+        state = create_train_state(smpl, mean_theta, cfg, device="cuda", seed=0)
+        run = _counted_step(torch, cc, make_fused_train_step(cfg, smpl, augment=True, device="cuda"))
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        metrics = run(state, hosts[0], raws[0], gen)
+        peak = torch.cuda.max_memory_allocated()
+        stats = {k: v.clone() for k, v in state.hmr.state_dict().items() if k.endswith(("running_mean", "running_var"))}
+        metrics = {f: v.clone() for f, v in vars(metrics).items()}
+        times = []
+        for h, r in zip(hosts[1 : 1 + timed], raws[1 : 1 + timed]):
+            t0 = time.perf_counter()
+            run(state, h, r, gen)
+            times.append(time.perf_counter() - t0)
+        res[remat] = (metrics, stats, peak, peak - base, 1e3 * float(np.median(times)))
+        del state
+    (m0, s0, peak0, above0, ms0), (m1, s1, peak1, above1, ms1) = res[False], res[True]
+    worst_m = max(float((m1[f] - v).abs().max()) / max(float(v.abs().max()), 1e-30) for f, v in m0.items())
+    worst_s = max(float((s1[k] - v).abs().max()) for k, v in s0.items())
+    if not (worst_m <= 1e-5 and worst_s <= 1e-6):
+        raise AssertionError(f"remat vs plain: StepMetrics {worst_m:.2e} (rtol 1e-5), BN statistics {worst_s:.2e} (1e-6)")
+    gib = 2**30
+    print(
+        f"[remat] fused step ResNet-50 224px bf16 batch 8, remat_encoder on vs off: StepMetrics max rel "
+        f"{worst_m:.2e} (1e-5), BN running statistics max abs {worst_s:.2e} (1e-6: updated once) | peak memory "
+        f"{peak1 / gib:.2f} GiB on vs {peak0 / gib:.2f} GiB off ({above1 / gib:.2f} vs {above0 / gib:.2f} GiB above "
+        f"the state before the step) | {ms1:.2f} ms/step on vs {ms0:.2f} off (median of {timed}) | on {card}",
+        flush=True,
+    )
+
+
 def main() -> int:
     try:
         import torch
@@ -880,17 +1251,35 @@ def main() -> int:
 
     smpl = synthetic_model(num_verts=6890, seed=0)
     mean_theta = to_mean_theta(synthetic_mean_params())
+    counters = {"LAUNCHES": k1, "VALUE_GRAD_LAUNCHES": k2, "GRAD_LAUNCHES": k3, "F32IDX_LAUNCHES": k4}
+
+    def counted(*phases):
+        """Run the phases with every kernel's count set to 0 before and
+        added to its kernel's launches after."""
+        for name in counters:
+            setattr(cc, name, 0)
+        for phase, *args in phases:
+            phase(*args)
+        for name, entry in counters.items():
+            entry["launches"] = entry.get("launches", 0) + getattr(cc, name)
+
     # the main path: serving, evaluation, training
-    cc.LAUNCHES = cc.VALUE_GRAD_LAUNCHES = cc.GRAD_LAUNCHES = cc.F32IDX_LAUNCHES = 0
-    phase_serving(torch, card, smpl, mean_theta)
-    phase_eval(torch, cc, card, smpl, mean_theta)
-    phase_train(torch, cc, card, smpl, mean_theta)
-    k1["launches"] = cc.LAUNCHES
-    k2["launches"] = cc.VALUE_GRAD_LAUNCHES
-    k3["launches"] = cc.GRAD_LAUNCHES
-    k4["launches"] = cc.F32IDX_LAUNCHES
+    counted(
+        (phase_serving, torch, card, smpl, mean_theta),
+        (phase_eval, torch, cc, card, smpl, mean_theta),
+        (phase_train, torch, cc, card, smpl, mean_theta),
+    )
     if k1["launches"] == 0 or k2["launches"] == 0:
         raise AssertionError("the main path never launched K1 or K2")
+
+    # the on-device input path and the fused step from pinned host canvases
+    hosts = _host_batches(torch, 12)
+    mocap = _mocap_stream(torch, _fused_cfg(), smpl, samples=24 * 16)
+    raws = [next(mocap) for _ in hosts]
+    counted((phase_fused_train, torch, cc, card, smpl, mean_theta, hosts, raws))
+    phase_augment_parity(torch, card, hosts[1])
+    counted((phase_multi_step, torch, cc, card, smpl, mean_theta, hosts, raws))
+    counted((phase_remat, torch, cc, card, smpl, mean_theta, hosts, raws))
 
     phase_train_parity(torch, card, smpl, mean_theta)
 

@@ -1,7 +1,8 @@
 """Typed configuration: the port's own copy of the JAX package's
 ``Config`` dataclass and ``parse_config`` (``human_pose_estimation_tpu/
 config.py``), field for field, so that one set of settings drives both
-packages. Only the forward path's fields are read in this package so far.
+packages. Fields of the parts not ported yet (the trainer loop,
+checkpoints, logging) are read nowhere in this package so far.
 """
 from __future__ import annotations
 
@@ -16,10 +17,16 @@ class Config:
     """The JAX package's ``Config``, field for field (see
     ``human_pose_estimation_tpu/config.py`` for what each field does there).
     This package reads: img_size, num_stage, joint_type, batch_size, the
-    loss weights and toggles, encoder_dtype ('float32' | 'bfloat16',
-    autocast on the card), encoder_depth, encoder_stage_sizes (a shallow
-    encoder, e.g. "1,1,1,1"), encoder_int8 (refused: not ported),
-    mr_scale_mode, mr_metric_stages and smpl_model_path."""
+    loss weights and toggles, the learning rates and schedule,
+    encoder_dtype ('float32' | 'bfloat16', autocast on the card),
+    encoder_depth, encoder_stage_sizes (a shallow encoder, e.g. "1,1,1,1"),
+    encoder_int8 (refused: not ported), remat_encoder, mr_scale_mode,
+    mr_metric_stages, cam_scale_hinge / margin, gp_mode,
+    max_silhouette_points, the augmentation (trans_max, scale_min,
+    scale_max), seed, input_pipeline (only 'npz' is ported), data_dir,
+    datasets, mocap_datasets and smpl_model_path. fuse_preprocess and
+    steps_per_call select ``train.step.make_fused_train_step`` and
+    ``make_multi_step`` in the JAX trainer, which is not ported yet."""
 
     # --- assets
     smpl_model_path: str = "models/model.pkl"

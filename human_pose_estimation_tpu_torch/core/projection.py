@@ -21,5 +21,9 @@ def reproject_to_pixels(verts: torch.Tensor, camera: torch.Tensor, img_size) -> 
     """Project (N, V, 3) vertices and map [-1, 1] to pixel coordinates;
     ``img_size`` is a scalar or [h, w]."""
     projected = orth_project(verts, camera)
+    if isinstance(img_size, (int, float)):
+        # a Python scalar, not a tensor: copying a host value to the device
+        # would make the host wait for the device in every training step
+        return (projected + 1.0) * 0.5 * img_size
     size = torch.as_tensor(img_size, dtype=projected.dtype, device=projected.device)
     return (projected + 1.0) * 0.5 * size

@@ -1,16 +1,16 @@
 """Rotation math for the SMPL body model, in PyTorch.
 
-Counterpart of ``human_pose_estimation_tpu/core/rotations.py`` (``skew``
-and ``rodrigues``). The Rodrigues angle keeps the reference's
-``norm(theta + 1e-8)`` quirk — the epsilon is added to each component
-before the norm — the JAX package's ``eps_mode='reference'``, the only
-mode its body model uses.
+Counterpart of ``human_pose_estimation_tpu/core/rotations.py`` (``skew``,
+``rodrigues``, ``lrotmin`` and ``rotation_distance``). The Rodrigues angle
+keeps the reference's ``norm(theta + 1e-8)`` quirk — the epsilon is added
+to each component before the norm — the JAX package's
+``eps_mode='reference'``, the only mode its body model uses.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["skew", "rodrigues"]
+__all__ = ["skew", "rodrigues", "lrotmin", "rotation_distance"]
 
 
 def skew(vec: torch.Tensor) -> torch.Tensor:
@@ -38,3 +38,19 @@ def rodrigues(theta: torch.Tensor) -> torch.Tensor:
     outer = axis[..., :, None] * axis[..., None, :]
     eye = torch.eye(3, dtype=theta.dtype, device=theta.device)
     return cos * eye + (1.0 - cos) * outer + sin * skew(axis)
+
+
+def lrotmin(theta: torch.Tensor) -> torch.Tensor:
+    """The pose-blendshape feature: (N, 72) axis-angle pose (root first)
+    -> (N, 207) flattened ``R_k - I`` of the 23 non-root joints (SMPL
+    eq. 9)."""
+    body = theta[..., 3:].reshape(*theta.shape[:-1], 23, 3)
+    eye = torch.eye(3, dtype=theta.dtype, device=theta.device)
+    return (rodrigues(body) - eye).reshape(*theta.shape[:-1], 207)
+
+
+def rotation_distance(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
+    """Geodesic angle between rotation matrices (..., 3, 3) -> (...)."""
+    rel = torch.einsum("...ij,...kj->...ik", r1, r2)
+    trace = rel[..., 0, 0] + rel[..., 1, 1] + rel[..., 2, 2]
+    return torch.arccos(((trace - 1.0) / 2.0).clamp(-1.0, 1.0))

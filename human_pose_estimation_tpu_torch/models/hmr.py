@@ -18,23 +18,29 @@ Train mode (``HMR.train()``, the JAX ``train=True``): the encoder
 normalises with batch statistics and updates its running buffers
 (``models/resnet.FlaxBatchNorm2d``), and dropout acts on the LAST IEF
 stage only (the reference quirk), with masks from the ``generator``
-passed to ``forward``. The int8 encoder (``encoder_qparams``) is not
-ported.
+passed to ``forward``. With ``remat_encoder`` the train-mode encoder
+keeps no activations for the backward and recomputes them there
+(``torch.utils.checkpoint``); the recompute leaves the BN running
+statistics alone, so that they are updated once per step, as JAX's
+``jax.checkpoint`` returns them once. The int8 encoder
+(``encoder_qparams``) is not ported.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import at_least_f32, resolve_device
 from ..core.projection import orth_project
 from ..core.smpl import SMPLModel, smpl_forward
 from .regressor import IEFRegressor
-from .resnet import ResNet, make_resnet
+from .resnet import FlaxBatchNorm2d, ResNet, make_resnet
 
 NUM_CAM = 3
 NUM_POSE = 72
@@ -92,11 +98,14 @@ class HMR(nn.Module):
         encoder_depth: int = 50,
         device=None,
         seed: int = 0,
+        remat_encoder: bool = False,
     ):
         """Builds the encoder and regressor on ``device`` (``cuda`` unless
         the caller asks for the CPU) with weights from a seeded init; load
         trained or bridged weights with ``load_state_dict``.
         encoder_stage_sizes: a shallow encoder for tests, e.g. (1, 1, 1, 1).
+        remat_encoder: recompute the train-mode encoder's activations in
+        the backward instead of keeping them (less memory, more time).
         """
         super().__init__()
         if encoder_dtype not in _DTYPES:
@@ -106,6 +115,7 @@ class HMR(nn.Module):
         self.num_stage = num_stage
         self.joint_type = joint_type
         self.encoder_dtype = _DTYPES[encoder_dtype]
+        self.remat_encoder = remat_encoder
         if encoder_stage_sizes is None:
             self.encoder = make_resnet(encoder_depth)
         else:
@@ -124,6 +134,27 @@ class HMR(nn.Module):
             enabled=self.encoder_dtype == torch.bfloat16,
         )
 
+    @contextlib.contextmanager
+    def _recompute_context(self):
+        """The context of the encoder's recompute in the backward: train
+        mode (the caller may have left it by then) with the BN running
+        statistics frozen, since the forward already updated them."""
+        was = self.encoder.training
+        bns = [m for m in self.encoder.modules() if isinstance(m, FlaxBatchNorm2d)]
+        self.encoder.train()
+        for m in bns:
+            m.update_running_stats = False
+        try:
+            yield
+        finally:
+            for m in bns:
+                m.update_running_stats = True
+            self.encoder.train(was)
+
+    def _encode(self, images: torch.Tensor) -> torch.Tensor:
+        with self._autocast():
+            return self.encoder(images)
+
     def forward(
         self,
         images: torch.Tensor,
@@ -141,8 +172,17 @@ class HMR(nn.Module):
         if smpl_stages not in ("all", "last"):
             raise ValueError("smpl_stages must be 'all' or 'last'")
         n = images.shape[0]
-        with self._autocast():
-            features = self.encoder(images)
+        if self.training and self.remat_encoder:
+            # the encoder draws no random numbers, so no RNG state is kept
+            features = checkpoint(
+                self._encode,
+                images,
+                use_reentrant=False,
+                preserve_rng_state=False,
+                context_fn=lambda: (contextlib.nullcontext(), self._recompute_context()),
+            )
+        else:
+            features = self._encode(images)
         theta = at_least_f32(mean_theta).expand(n, -1)
         stages: List[StageOutput] = []
         for stage in range(self.num_stage):

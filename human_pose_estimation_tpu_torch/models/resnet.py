@@ -43,8 +43,12 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     variance: ``running = (1 - momentum) * running + momentum * batch``.
     ``nn.BatchNorm2d`` would update the running variance with the unbiased
     one, off by N*H*W / (N*H*W - 1). Eval mode is ``nn.BatchNorm2d``'s.
-    Parameter and buffer names are unchanged.
+    Parameter and buffer names are unchanged. With
+    ``update_running_stats`` False the train mode leaves the buffers alone
+    (the recompute of a rematerialised encoder, ``models/hmr.py``).
     """
+
+    update_running_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -52,10 +56,11 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         xf = at_least_f32(x)  # statistics in at least f32, as Flax
         mean = xf.mean(dim=(0, 2, 3))
         var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
-        with torch.no_grad():
-            self.running_mean.mul_(1.0 - self.momentum).add_(mean.detach(), alpha=self.momentum)
-            self.running_var.mul_(1.0 - self.momentum).add_(var.detach(), alpha=self.momentum)
-            self.num_batches_tracked.add_(1)
+        if self.update_running_stats:
+            with torch.no_grad():
+                self.running_mean.mul_(1.0 - self.momentum).add_(mean.detach(), alpha=self.momentum)
+                self.running_var.mul_(1.0 - self.momentum).add_(var.detach(), alpha=self.momentum)
+                self.num_batches_tracked.add_(1)
         scale = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
         return y.to(x.dtype)

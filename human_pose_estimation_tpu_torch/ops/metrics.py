@@ -1,6 +1,7 @@
-"""Keypoint evaluation metrics (counterpart of ``human_pose_estimation_tpu/
-ops/metrics.py``): PCK with torso-diameter normalization, the PCK curve,
-its area, and per-joint PCK — what the validation sweep reports."""
+"""Evaluation metrics (counterpart of ``human_pose_estimation_tpu/ops/
+metrics.py``): PCK with torso-diameter normalization, the PCK curve, its
+area and per-joint PCK (what the validation sweep reports), the mean
+per-joint error, and the Procrustes-aligned error of 3D point sets."""
 from __future__ import annotations
 
 import torch
@@ -30,6 +31,12 @@ def pck(kp_gt: torch.Tensor, kp_pred: torch.Tensor, alpha: float = 0.5) -> torch
     return correct.sum() / vis.sum().clamp_min(1.0)
 
 
+def mean_per_joint_error(kp_gt: torch.Tensor, kp_pred: torch.Tensor) -> torch.Tensor:
+    """Mean Euclidean error over the visible keypoints (scalar)."""
+    vis = kp_gt[..., 2]
+    return (_dist(kp_gt, kp_pred) * vis).sum() / vis.sum().clamp_min(1.0)
+
+
 def pck_curve(kp_gt, kp_pred, thresholds=(0.1, 0.2, 0.3, 0.4, 0.5)) -> torch.Tensor:
     """PCK at several torso-normalized thresholds -> (len(thresholds),)."""
     vis = kp_gt[..., 2]
@@ -52,3 +59,29 @@ def per_joint_pck(kp_gt, kp_pred, alpha: float = 0.5) -> torch.Tensor:
     vis = kp_gt[..., 2]
     correct = (_dist(kp_gt, kp_pred) <= alpha * _torso(kp_gt)).float() * vis
     return correct.sum(dim=0) / vis.sum(dim=0).clamp_min(1.0)
+
+
+def procrustes_align(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """Per-sample similarity (Procrustes, with scale; Umeyama) alignment of
+    pred (N, P, 3) onto gt (N, P, 3): ``min_{s,R,t} ||s R pred + t - gt||``.
+    Returns the aligned predictions (N, P, 3). A reflection is never
+    taken: when the best orthogonal map has det < 0 the smallest singular
+    direction is flipped."""
+    mu_p = pred.mean(dim=1, keepdim=True)
+    mu_g = gt.mean(dim=1, keepdim=True)
+    pc = pred - mu_p
+    gc = gt - mu_g
+    cov = torch.einsum("npi,npj->nij", gc, pc)  # (N, 3, 3) cross-covariance
+    u, s, vt = torch.linalg.svd(cov)
+    det = torch.linalg.det(u @ vt)
+    d = torch.stack([torch.ones_like(det), torch.ones_like(det), torch.sign(det)], dim=-1)
+    r = torch.einsum("nij,nj,njk->nik", u, d, vt)  # gt <- pred
+    var_p = (pc * pc).sum(dim=(1, 2))
+    scale = (s * d).sum(dim=-1) / var_p.clamp_min(1e-12)
+    return scale[:, None, None] * torch.einsum("nij,npj->npi", r, pc) + mu_g
+
+
+def pa_error(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """Mean per-point Euclidean error after Procrustes alignment -> (N,):
+    PA-MPJPE for joints, PVE-PA for vertices."""
+    return torch.linalg.vector_norm(procrustes_align(pred, gt) - gt, dim=-1).mean(dim=-1)

@@ -128,10 +128,11 @@ def _stage_sizes(cfg: Config):
 
 
 def create_train_state(smpl, mean_theta, cfg: Config, device=None, seed: int = 0) -> TrainState:
-    """A fresh state from a seed: the HMR (``cfg``'s encoder, stages and
-    dtype) and the critic with the JAX package's initialisers, the mean
-    theta as a trainable (1, 85) parameter, and the optimizers of
-    ``make_optimizers``. Runs on ``cuda`` unless ``device`` says otherwise."""
+    """A fresh state from a seed: the HMR (``cfg``'s encoder, stages,
+    dtype and ``remat_encoder``) and the critic with the JAX package's
+    initialisers, the mean theta as a trainable (1, 85) parameter, and the
+    optimizers of ``make_optimizers``. Runs on ``cuda`` unless ``device``
+    says otherwise."""
     hmr = HMR(
         smpl,
         num_stage=cfg.num_stage,
@@ -141,6 +142,7 @@ def create_train_state(smpl, mean_theta, cfg: Config, device=None, seed: int = 0
         encoder_depth=cfg.encoder_depth,
         device=device,
         seed=seed,
+        remat_encoder=cfg.remat_encoder,
     )
     critic = Critic()
     critic.reset_parameters(torch.Generator().manual_seed(seed + 1))

@@ -1,5 +1,6 @@
 """The training step and the evaluation step (counterpart of
-``make_train_step``, ``make_val_step`` and ``_stage_losses`` in
+``make_train_step``, ``make_val_step``, ``_stage_losses``,
+``make_fused_train_step`` and ``make_multi_step`` in
 ``human_pose_estimation_tpu/train/step.py``).
 
 The training step is the reference's hybrid step: the HMR forward with the
@@ -21,6 +22,7 @@ import torch
 from .. import resolve_device
 from ..config import Config
 from ..core.projection import reproject_to_pixels
+from ..core.smpl import smpl_forward
 from ..ops import kcs as K
 from ..ops import losses as L
 from .state import TrainState
@@ -35,12 +37,34 @@ class GenBatch(NamedTuple):
     kp2d: torch.Tensor  # (N, 19, 3) [x, y, vis] in [-1, 1]
 
 
+class HostBatch(NamedTuple):
+    """Raw decoded examples as the host pipeline produced them (fixed uint8
+    canvases and their geometry), as numpy arrays or (pinned) CPU tensors;
+    the fused training step copies them to the device and augments them
+    there."""
+
+    image: torch.Tensor  # (N, Hc, Wc, 3) uint8
+    seg: torch.Tensor  # (N, Hc, Wc, 1) uint8
+    hw: torch.Tensor  # (N, 2) int32
+    center: torch.Tensor  # (N, 2) int32
+    label: torch.Tensor  # (N, 3, 19)
+
+
 class MocapBatch(NamedTuple):
     """Real samples for the critic."""
 
     joints: torch.Tensor  # (M, >=14, 3)
     shapes: torch.Tensor  # (M, 10)
     rotations: torch.Tensor  # (M, 23, 3, 3)
+
+
+@torch.no_grad()
+def mocap_batch(smpl, pose: torch.Tensor, shape: torch.Tensor) -> MocapBatch:
+    """Real critic samples from mocap ``pose`` (M, 72) and ``shape`` (M, 10)
+    on the body model's device: one batched body-model forward with the 19
+    cocoplus joints, the rotations without the root."""
+    out = smpl_forward(smpl, shape, pose, joint_type="cocoplus")
+    return MocapBatch(joints=out.joints, shapes=shape, rotations=out.rotations[:, 1:])
 
 
 @dataclasses.dataclass
@@ -256,3 +280,59 @@ def make_train_step(cfg: Config, device=None):
         )
 
     return train_step
+
+
+def make_fused_train_step(cfg: Config, smpl, augment: bool = True, device=None):
+    """Build ``fused(state, host, mocap_raw, generator) -> StepMetrics``:
+    the training step from raw host data, counterpart of the JAX
+    ``make_fused_train_step``.
+
+    ``host`` is a ``HostBatch``: it is copied to the device (through pinned
+    memory, without blocking the host), augmented with draws from
+    ``generator`` and turned into silhouettes (``data.pipeline.
+    DevicePreprocessor``); ``mocap_raw=(pose (M, 72), shape (M, 10))``, or
+    None, is posed by one batched body-model forward into a ``MocapBatch``;
+    then ``make_train_step``'s step runs on the same generator. The
+    augmentation draws first, so the step equals ``DevicePreprocessor``
+    followed by ``make_train_step`` on one generator. Runs on ``cuda`` unless
+    ``device`` says otherwise."""
+    # data.pipeline imports this module (GenBatch)
+    from ..data.pipeline import DevicePreprocessor, to_device
+
+    dev = resolve_device(device)
+    prep = DevicePreprocessor(cfg, augment=augment, device=dev)
+    body = smpl.to(dev)
+    base = make_train_step(cfg, device=dev)
+
+    def fused(
+        state: TrainState, host: HostBatch, mocap_raw: Optional[Tuple], generator: Optional[torch.Generator]
+    ) -> StepMetrics:
+        batch = prep(host._asdict(), generator)
+        mocap = None
+        if mocap_raw is not None:
+            pose, shape = (to_device(t, dev) for t in mocap_raw)
+            mocap = mocap_batch(body, pose, shape)
+        return base(state, batch, mocap, generator)
+
+    return fused
+
+
+def make_multi_step(step_fn, k: int):
+    """Build ``multi(state, batches, mocaps, generator) -> StepMetrics``: k
+    calls of ``step_fn`` (a train or fused step) in order on one state and
+    one generator, ``batches`` and ``mocaps`` (or None) k of each, with the
+    k ``StepMetrics`` stacked field by field on the device (each field gains
+    a leading axis of k), so that one transfer reads them all. It is the k
+    calls: the generator advances through them as it would through k
+    separate calls."""
+
+    def multi(state: TrainState, batches, mocaps, generator: Optional[torch.Generator]) -> StepMetrics:
+        mocaps = (None,) * k if mocaps is None else tuple(mocaps)
+        if len(batches) != k or len(mocaps) != k:
+            raise ValueError(f"make_multi_step({k}) takes {k} batches and {k} mocaps (or None)")
+        steps = [step_fn(state, b, m, generator) for b, m in zip(batches, mocaps)]
+        return StepMetrics(**{
+            f.name: torch.stack([getattr(s, f.name) for s in steps]) for f in dataclasses.fields(StepMetrics)
+        })
+
+    return multi

@@ -180,25 +180,28 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port (the training state and step and
-    the CUDA kernels' wrappers among them) loads no jax, flax, optax or JAX
-    package module; chip_smoke.py imports none of them either."""
+    """Importing every module of the port (the training state and step,
+    the CUDA kernels' wrappers and the data modules among them) loads no
+    jax, flax, optax or JAX package module, and no OpenCV (the card's
+    machine has none); chip_smoke.py imports none of them either."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import human_pose_estimation_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'human_pose_estimation_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'human_pose_estimation_tpu', 'cv2'))\n"
         "mods = [m for m in sys.modules if m.startswith('human_pose_estimation_tpu_torch')]\n"
         "missing = {'human_pose_estimation_tpu_torch.train.state', 'human_pose_estimation_tpu_torch.train.step', "
-        "'human_pose_estimation_tpu_torch.ops.cuda_chamfer', 'human_pose_estimation_tpu_torch.ops.losses'} - set(mods)\n"
+        "'human_pose_estimation_tpu_torch.ops.cuda_chamfer', 'human_pose_estimation_tpu_torch.ops.losses', "
+        "'human_pose_estimation_tpu_torch.data.augment', 'human_pose_estimation_tpu_torch.data.pipeline', "
+        "'human_pose_estimation_tpu_torch.data.npz_dataset'} - set(mods)\n"
         "print(len(mods), bad, sorted(missing))\n"
         "sys.exit(1 if bad or missing else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 23  # every module was imported
+    assert int(proc.stdout.split()[0]) >= 27  # every module was imported
 
     tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
     names = set()
@@ -207,7 +210,7 @@ def test_port_imports_no_jax():
             names.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             names.add(node.module or "")
-    banned = {"jax", "jaxlib", "flax", "optax", "human_pose_estimation_tpu"}
+    banned = {"jax", "jaxlib", "flax", "optax", "human_pose_estimation_tpu", "cv2"}
     assert not {n for n in names if n.split(".")[0] in banned}, names
 
 
