@@ -94,6 +94,9 @@ def _time_cuda(fn, iters: int, warmup: int = 3, queued: bool = False, batch: int
     return total_ms / iters
 
 
+SMOKE_DIR = os.path.join(HERE, "build", "smoke")  # git-ignored
+MOCAP_SHARD = os.path.join(SMOKE_DIR, "neutrSMPL_smoke_0.npz")
+
 K1_KERNELS = ("fwd_count", "fwd_pixel_pass", "fwd_pixel_merge", "fwd_vertex_pass", "fwd_vertex_merge", "fwd_finish")
 K2_KERNELS = ("assign_kernel", "assign_merge_kernel", "vertex_kernel", "vertex_merge_kernel")
 
@@ -623,6 +626,23 @@ def phase_serving(torch, card, smpl, mean_theta):
     return ips
 
 
+def _eval_batches(torch, gen, n, p, img, count):
+    """``count`` evaluation GenBatches on the card: silhouettes of 2k-9k
+    pixels (mean ~4.5k: one large, the rest 2k-6.2k), keypoints, images."""
+    from human_pose_estimation_tpu_torch.train.step import GenBatch
+
+    batches = []
+    for _ in range(count):
+        counts = torch.randint(2000, 6200, (n,), generator=gen).tolist()
+        counts[0] = int(torch.randint(6200, 9200, (1,), generator=gen))
+        pts, mask = _eval_silhouettes(gen, n, p, counts, img)
+        kp = torch.rand(n, 19, 3, generator=gen) * 2 - 1
+        kp[..., 2] = (torch.rand(n, 19, generator=gen) > 0.2).float()
+        images = torch.rand(n, img, img, 3, generator=gen) * 2 - 1
+        batches.append(GenBatch(images.cuda(), pts.cuda(), mask.cuda(), kp.cuda()))
+    return batches
+
+
 def phase_eval(torch, cc, card, smpl, mean_theta, num_batches=10):
     """The evaluation path: make_val_step at full width (batch 8, P=16384
     silhouette budget, mesh loss on all three IEF stages), aggregated as
@@ -634,7 +654,7 @@ def phase_eval(torch, cc, card, smpl, mean_theta, num_batches=10):
     from human_pose_estimation_tpu_torch.models.critic import Critic
     from human_pose_estimation_tpu_torch.ops.losses import mesh_reprojection_loss
     from human_pose_estimation_tpu_torch.ops.metrics import pck, pck_auc, pck_curve
-    from human_pose_estimation_tpu_torch.train.step import GenBatch, make_val_step
+    from human_pose_estimation_tpu_torch.train.step import make_val_step
 
     n, img, p = 8, 224, 16384
     cfg = Config(
@@ -648,16 +668,7 @@ def phase_eval(torch, cc, card, smpl, mean_theta, num_batches=10):
     critic = critic.cuda().eval()
     val_step = make_val_step(hmr, critic, cfg, return_stages=True)
 
-    batches = []
-    for i in range(num_batches + 1):
-        # 2k-9k pixels, mean ~4.5k: one large silhouette, the rest 2k-6.2k
-        counts = torch.randint(2000, 6200, (n,), generator=gen).tolist()
-        counts[0] = int(torch.randint(6200, 9200, (1,), generator=gen))
-        pts, mask = _eval_silhouettes(gen, n, p, counts, img)
-        kp = torch.rand(n, 19, 3, generator=gen) * 2 - 1
-        kp[..., 2] = (torch.rand(n, 19, generator=gen) > 0.2).float()
-        images = torch.rand(n, img, img, 3, generator=gen) * 2 - 1
-        batches.append(GenBatch(images.cuda(), pts.cuda(), mask.cuda(), kp.cuda()))
+    batches = _eval_batches(torch, gen, n, p, img, num_batches + 1)
     val_step(mean_theta.cuda(), batches[0])  # warm-up
     torch.cuda.synchronize()
 
@@ -960,7 +971,7 @@ def _mocap_stream(torch, cfg, smpl, samples, seed=5):
     from human_pose_estimation_tpu_torch.data.npz_dataset import NpzMocapPipeline, write_mocap_npz_shard
 
     rng = np.random.RandomState(seed)
-    path = os.path.join(HERE, "build", "smoke", "neutrSMPL_smoke_0.npz")
+    path = MOCAP_SHARD
     os.makedirs(os.path.dirname(path), exist_ok=True)
     write_mocap_npz_shard(path, rng.randn(samples, 72) * 0.2, rng.randn(samples, 10) * 0.4)
     return iter(NpzMocapPipeline(cfg, smpl, [path], device_forward=False, device="cuda"))
@@ -1212,6 +1223,305 @@ def phase_remat(torch, cc, card, smpl, mean_theta, hosts, raws, timed=3):
     )
 
 
+class _Resumable:
+    """A stream over ``items`` that starts where ``{"pos": i}`` says: the
+    image stream of the ``[trainer]`` phase, with the state a checkpoint
+    keeps."""
+
+    def __init__(self, items, n_valid):
+        self.items, self.n_valid, self.pos = items, n_valid, 0
+
+    def get_state(self):
+        return {"pos": self.pos}
+
+    def set_state(self, state):
+        self.pos = int(state["pos"])
+
+    def __iter__(self):
+        while True:
+            item = self.items[self.pos % len(self.items)]
+            self.pos += 1
+            yield item, self.n_valid
+
+
+def _state_tensors(state):
+    """Every float tensor of a TrainState's state_dict, by dotted name."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}.{k}" if path else k)
+        elif hasattr(node, "is_floating_point") and node.is_floating_point():
+            out[path] = node
+
+    walk(state.state_dict(), "")
+    return out
+
+
+def _max_rel(torch, got, want):
+    """(largest relative difference, its name) of two {name: tensor}: each
+    tensor's largest difference over its own largest magnitude."""
+    return max(
+        (float((got[k].double() - w.double()).abs().max()) / max(float(w.abs().max()), 1e-30), k)
+        for k, w in want.items()
+    )
+
+
+def phase_trainer(torch, cc, card, smpl, mean_theta, train_ms):
+    """The ``[trainer]`` phase (``_phase_trainer``) with the loop's own
+    progress and epoch lines kept off the output: one line per phase."""
+    import contextlib
+    import io
+
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        line = _phase_trainer(torch, cc, card, smpl, mean_theta, train_ms)
+    print(line, flush=True)
+
+
+def _phase_trainer(torch, cc, card, smpl, mean_theta, train_ms):
+    """The training loop at full width: Trainer over ResNet-50 224 px bf16,
+    batch 8, P=16384, mesh loss on 3 stages, GP on, mocap 24 from
+    NpzMocapPipeline, 3 steps per epoch, a checkpoint every epoch and
+    validation every 3 steps. A straight run of 6 steps; the loop's ms per
+    step against its own bare step, timed alternately on the same
+    pre-posed batches, beside ``[train]``'s; host syncs per step at
+    scalar_log_step 1 and 1000; one checkpoint's bytes and its save and
+    restore seconds; the restore into a fresh Trainer bit-equal; 3 steps +
+    checkpoint + a fresh Trainer + 3 steps against the straight run,
+    bit-equal where a second straight run is; validate_checkpoint against
+    a hand loop of make_val_step; a Predictor restored from the checkpoint
+    against one built from the state."""
+    import itertools
+    import shutil
+
+    import numpy as np
+
+    from human_pose_estimation_tpu_torch.config import Config
+    from human_pose_estimation_tpu_torch.data.npz_dataset import NpzMocapPipeline
+    from human_pose_estimation_tpu_torch.infer.predictor import Predictor
+    from human_pose_estimation_tpu_torch.ops.metrics import pck, pck_auc, pck_curve, per_joint_pck
+    from human_pose_estimation_tpu_torch.train.state import step_generator
+    from human_pose_estimation_tpu_torch.train.step import make_val_step
+    from human_pose_estimation_tpu_torch.train.trainer import Trainer
+    from human_pose_estimation_tpu_torch.utils import checkpoint as ckpt
+
+    n, img, p = 8, 224, 16384
+    root = os.path.join(SMOKE_DIR, "trainer")
+    shutil.rmtree(root, ignore_errors=True)  # a step at or below the latest on disk is not saved again
+    base = dict(
+        batch_size=n, img_size=img, encoder_dtype="bfloat16", use_mesh_repro_loss=True, mr_metric_stages="all",
+        max_silhouette_points=p, use_gradient_penalty=True, num_examples_override=3 * n, checkpoint_every_epochs=1,
+        validation_step_size=3, log_img_step=0, epoch=1000, model_dir=None, scalar_log_step=1,
+    )
+    pairs = _train_batches(torch, smpl, n, p, img, 6, seed=6, device="cuda")
+    images = [b for b, _ in pairs]
+    val_batches = _eval_batches(torch, torch.Generator().manual_seed(8), n, p, img, 4)
+
+    def trainer(name, **kw):
+        cfg = Config(**{**base, "checkpoint_dir": os.path.join(root, name), **kw})
+        mocap = NpzMocapPipeline(cfg, smpl, [MOCAP_SHARD], device_forward=True, seed=3, device="cuda")
+        t = Trainer(cfg, dataset=_Resumable(images, n), mocap_dataset=mocap, val_dataset=_Resumable(val_batches, n),
+                    smpl=smpl, device="cuda")
+        t.metrics = []  # every step's StepMetrics, on the card
+        inner = t.train_step
+        t.train_step = lambda *a: t.metrics.append(inner(*a)) or t.metrics[-1]
+        return t
+
+    # -- the straight run, and a second one for the spread of the card ----
+    k1, k2 = cc.LAUNCHES, cc.VALUE_GRAD_LAUNCHES
+    straight = trainer("straight")
+    straight.train(max_steps=6)
+    torch.cuda.synchronize()
+    if (cc.VALUE_GRAD_LAUNCHES - k2, cc.LAUNCHES - k1) != (18, 6):
+        raise AssertionError(
+            f"6 trainer steps launched K2 {cc.VALUE_GRAD_LAUNCHES - k2} times (not 18) and K1 "
+            f"{cc.LAUNCHES - k1} times (not 6: validation at steps 3 and 6)"
+        )
+    step_ms = [ms for tag, step, ms in straight.writers["train"].history if tag == "perf/step_time_ms" and step > 1]
+    straight_ms = float(np.median(step_ms))
+    if ckpt.latest_step(straight.config.checkpoint_dir) != 6 or straight.state.step != 6:
+        raise AssertionError("the straight run did not checkpoint step 6")
+    for m in straight.metrics:
+        for field, value in vars(m).items():
+            if not bool(torch.isfinite(value).all()):
+                raise AssertionError(f"trainer metric {field} is not finite: {value}")
+    again = trainer("again", checkpoint_every_epochs=1000)
+    again.train(max_steps=6)
+
+    # -- the loop against its bare step, alternately, on the same inputs:
+    # mocap posed before both timers, no validation, no checkpoint; each
+    # interval holds one step and its one host sync (the metric copy in the
+    # loop, a synchronize around the bare step, as in [train])
+    timed = trainer("alternate", use_validation=False, checkpoint_every_epochs=1000, num_examples_override=1000 * n)
+    timed.mocap_dataset = itertools.cycle([m for _, m in pairs])
+    timed.train(max_steps=1)  # the first step of a state allocates its optimizer state
+    rounds = 6
+    loop_times, bare_times = [], []
+    for _ in range(rounds):
+        history = timed.writers["train"].history
+        logged = len(history)
+        timed.train(max_steps=3)
+        loop_times += [ms for tag, _, ms in history[logged:] if tag == "perf/step_time_ms"]
+        for batch, posed in pairs[:3]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            timed.train_step(timed.state, batch, posed, step_generator(timed.config.seed + 1, timed.state.step, "cuda"))
+            torch.cuda.synchronize()
+            bare_times.append(1e3 * (time.perf_counter() - t0))
+    if len(loop_times) != 3 * rounds:
+        raise AssertionError(f"the timed loop logged {len(loop_times)} step times, not {3 * rounds}")
+    loop_ms, bare_ms = float(np.median(loop_times)), float(np.median(bare_times))
+    # what the loop adds on the device: kernels and their time per step
+    loop_dev = _profiled_device_ms(torch, lambda: timed.train(max_steps=1), calls=3)
+    bare_dev = _profiled_device_ms(
+        torch,
+        lambda: timed.train_step(
+            timed.state, *pairs[0], step_generator(timed.config.seed + 1, timed.state.step, "cuda")
+        ),
+        calls=3,
+    )
+
+    # -- host syncs per step, no epoch end, no validation ------------------
+    syncs = {}
+    counter = trainer("syncs", use_validation=False, num_examples_override=1000 * n)
+    counter.train(max_steps=1)  # the first step of a state allocates its optimizer state
+    for cadence in (1, 1000):
+        counter.config = counter.config.replace(scalar_log_step=cadence)
+        syncs[cadence] = _host_syncs(torch, lambda: counter.train(max_steps=3)) / 3
+    if syncs[1] > 1 or syncs[1000] != 0:
+        raise AssertionError(f"host syncs per step: {syncs[1]} logging every step (at most 1), {syncs[1000]} not (0)")
+
+    # -- one checkpoint: bytes, save and restore seconds, bit-equal restore
+    timed_dir = os.path.join(root, "timed")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save_train_state(timed_dir, straight.state, input_state={"image": straight.dataset.get_state()})
+    save_s = time.perf_counter() - t0
+    step_dir = os.path.join(straight.config.checkpoint_dir, "6")
+    nbytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+    fresh = trainer("straight")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if fresh.restore() != 6:
+        raise AssertionError("the fresh Trainer restored no step 6")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    saved, loaded = straight.state.state_dict(), fresh.state.state_dict()
+    flat_saved, flat_loaded = _state_tensors(straight.state), _state_tensors(fresh.state)
+    unequal = [k for k, v in flat_saved.items() if not torch.equal(v, flat_loaded[k])]
+    int_fields = [(saved[k]["step"], loaded[k]["step"]) for k in ("gen_adam", "critic_adam")]
+    if (
+        unequal or set(flat_saved) != set(flat_loaded) or fresh.state.step != 6
+        or any(a != b for a, b in int_fields)
+        or fresh.dataset.get_state() != straight.dataset.get_state()
+        or fresh.mocap_dataset.get_state() != straight.mocap_dataset.get_state()
+    ):
+        raise AssertionError(f"the restore is not bit-equal: {unequal[:5]} ...")
+
+    # -- resume: 3 steps, checkpoint, a fresh Trainer, 3 more ------------
+    split = trainer("split")
+    split.train(max_steps=3)
+    split.save()
+    resumed = trainer("split", train_from_checkpoint=True)
+    resumed.train(max_steps=6)
+    if resumed.state.step != 6:
+        raise AssertionError(f"the resumed run ended at step {resumed.state.step}")
+
+    if (resumed.dataset.get_state(), resumed.mocap_dataset.get_state()) != (
+        straight.dataset.get_state(), straight.mocap_dataset.get_state()
+    ):
+        raise AssertionError("the resumed run's input streams ended elsewhere than the straight run's")
+
+    def final(t):
+        """Step 6's StepMetrics and every float tensor of the state."""
+        out = {f"metrics.{f}": v for f, v in vars(t.metrics[-1]).items()}
+        out.update(_state_tensors(t.state))
+        return out
+
+    want = final(straight)
+    spread_unequal = [k for k, v in final(again).items() if not torch.equal(v, want[k])]
+    resume_unequal = [k for k, v in final(resumed).items() if not torch.equal(v, want[k])]
+    if not spread_unequal:
+        # the card repeats a straight run bit for bit, so a resume must too
+        if resume_unequal:
+            raise AssertionError(
+                f"resume vs straight: {len(resume_unequal)} of {len(want)} tensors differ ({resume_unequal[:5]}), "
+                "where two straight runs are bit-equal"
+            )
+        resume_note = f"bit-equal ({len(want)} tensors: step 6's StepMetrics, the state), as two straight runs are"
+    else:
+        spread, spread_at = _max_rel(torch, final(again), want)
+        resume_diff, resume_at = _max_rel(torch, final(resumed), want)
+        limit = max(10 * spread, 1e-3)
+        if not resume_diff <= limit:
+            raise AssertionError(
+                f"resume vs straight: max rel {resume_diff:.3e} ({resume_at}) over the limit {limit:.3e} "
+                f"(two straight runs: {spread:.3e}, {spread_at})"
+            )
+        resume_note = (
+            f"max rel {resume_diff:.3e} ({resume_at}) per tensor, two straight runs {spread:.3e} ({spread_at}; "
+            f"{len(spread_unequal)} tensors differ), limit {limit:.3e}"
+        )
+
+    # -- validate_checkpoint against a hand loop of make_val_step ---------
+    fresh.val_dataset = [(b, n) for b in val_batches]
+    k1 = cc.LAUNCHES
+    results = fresh.validate_checkpoint(restore=False)
+    if cc.LAUNCHES - k1 != 12:
+        raise AssertionError(f"validate_checkpoint over 4 batches launched K1 {cc.LAUNCHES - k1} times, not 12")
+    hand = make_val_step(fresh.state.hmr, fresh.state.critic, fresh.config)
+    kprs, mrs, pcks, gts, preds = [], [], [], [], []
+    for b in val_batches:
+        out = hand(fresh.state.mean_theta, b)
+        gt, pred = b.kp2d[:, : out["pred_keypoints"].shape[1]].cpu(), out["pred_keypoints"].cpu()
+        kprs.append(float(out["kpr_losses"][-1]))
+        mrs.append(float(out["mr_losses"][-1]))
+        pcks.append(float(pck(gt, pred)))
+        gts.append(gt)
+        preds.append(pred)
+    gt_all, pred_all = torch.cat(gts), torch.cat(preds)
+    want = {"mean_kpr_loss": np.mean(kprs), "mean_mr_loss": np.mean(mrs), "pck@0.5": np.mean(pcks)}
+    want.update({f"pck@{t}": v for t, v in zip((0.1, 0.2, 0.3, 0.4, 0.5), pck_curve(gt_all, pred_all).tolist())})
+    want["pck_auc@0.5"] = float(pck_auc(gt_all, pred_all))
+    want["per_joint_pck@0.5"] = [round(float(v), 4) for v in per_joint_pck(gt_all, pred_all).tolist()]
+    if set(results) != set(want) or not all(
+        np.allclose(results[k], want[k], rtol=1e-6, atol=0.0) for k in want
+    ):
+        raise AssertionError(f"validate_checkpoint {results} differs from the hand loop {want} (rtol 1e-6)")
+
+    # -- Predictor restored from the checkpoint vs built from the state ---
+    serve = Config(batch_size=64, img_size=img, encoder_dtype="bfloat16", checkpoint_dir=straight.config.checkpoint_dir)
+    requests = np.random.RandomState(9).randint(0, 256, size=(64, img, img, 3)).astype("uint8")
+    from_ckpt = Predictor(serve, smpl=smpl).predict(requests)
+    from_state = Predictor(
+        serve, smpl=smpl, variables=straight.state.hmr.state_dict(), mean_theta=straight.state.mean_theta.detach()
+    ).predict(requests)
+    if set(from_ckpt) != set(from_state) or not all(np.array_equal(from_ckpt[k], from_state[k]) for k in from_state):
+        raise AssertionError("the Predictor restored from the checkpoint differs from the one built from the state")
+
+    return (
+        f"[trainer] Trainer ResNet-50 {img}px bf16 batch {n} P={p} mr on 3 stages, GP on, mocap 24 from "
+        f"NpzMocapPipeline, 3 steps/epoch, checkpoint every epoch, validation every 3 steps | loop vs its bare step "
+        f"alternately (pre-posed mocap, no validation or checkpoint; {rounds} rounds of 3 + 3): {loop_ms:.2f} vs "
+        f"{bare_ms:.2f} ms/step, median of {3 * rounds} each (loop min {min(loop_times):.2f} max "
+        f"{max(loop_times):.2f}; bare min {min(bare_times):.2f} max {max(bare_times):.2f}); device per step "
+        f"(profiler, 3 steps each): loop {loop_dev[0]:.3f} ms in {loop_dev[1]:.0f} launches, bare {bare_dev[0]:.3f} "
+        f"ms in {bare_dev[1]:.0f}; [train] {train_ms:.2f} | straight run with mocap "
+        f"posed in the loop, a validation and a checkpoint in its intervals (not comparable): {straight_ms:.2f} "
+        f"ms/step median of steps 2-6 (min {min(step_ms):.2f}, max {max(step_ms):.2f}) | K2 launches 18 in 6 "
+        f"steps, K1 6 (validation at steps 3, 6) | host syncs "
+        f"per step {syncs[1]:.2f} at scalar_log_step=1, {syncs[1000]:.2f} at 1000 | checkpoint {nbytes} bytes, save "
+        f"{save_s:.3f} s, restore {restore_s:.3f} s, restore bit-equal ({len(flat_saved)} tensors, step, both Adam "
+        f"counts, input state) | resume 3+3 vs straight 6: {resume_note} | validate_checkpoint 4 batches = hand "
+        f"loop (rtol 1e-6): "
+        f"kpr {results['mean_kpr_loss']:.4f} mr {results['mean_mr_loss']:.6f} PCK@0.5 {results['pck@0.5']:.4f}, "
+        f"K1 12 | Predictor restored from the checkpoint bit-equal to one built from the state (64 images) "
+        f"| on {card}"
+    )
+
+
 def main() -> int:
     try:
         import torch
@@ -1264,10 +1574,11 @@ def main() -> int:
             entry["launches"] = entry.get("launches", 0) + getattr(cc, name)
 
     # the main path: serving, evaluation, training
+    times = {}
     counted(
         (phase_serving, torch, card, smpl, mean_theta),
         (phase_eval, torch, cc, card, smpl, mean_theta),
-        (phase_train, torch, cc, card, smpl, mean_theta),
+        (lambda *a: times.setdefault("train", phase_train(*a)), torch, cc, card, smpl, mean_theta),
     )
     if k1["launches"] == 0 or k2["launches"] == 0:
         raise AssertionError("the main path never launched K1 or K2")
@@ -1280,6 +1591,9 @@ def main() -> int:
     phase_augment_parity(torch, card, hosts[1])
     counted((phase_multi_step, torch, cc, card, smpl, mean_theta, hosts, raws))
     counted((phase_remat, torch, cc, card, smpl, mean_theta, hosts, raws))
+
+    # the training loop, its checkpoints and validation sweep
+    counted((phase_trainer, torch, cc, card, smpl, mean_theta, times["train"]))
 
     phase_train_parity(torch, card, smpl, mean_theta)
 

@@ -1,14 +1,17 @@
 """Typed configuration: the port's own copy of the JAX package's
-``Config`` dataclass and ``parse_config`` (``human_pose_estimation_tpu/
-config.py``), field for field, so that one set of settings drives both
-packages. Fields of the parts not ported yet (the trainer loop,
-checkpoints, logging) are read nowhere in this package so far.
+``Config`` dataclass, ``parse_config`` and run-directory helpers
+(``run_name``, ``prepare_dirs``, ``save_config``, ``load_config``; see
+``human_pose_estimation_tpu/config.py``), field for field, so that one set
+of settings drives both packages and a ``params.json`` written by either
+loads in the other.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
+from datetime import datetime
 from typing import List, Optional, Sequence
 
 
@@ -24,9 +27,14 @@ class Config:
     mr_metric_stages, cam_scale_hinge / margin, gp_mode,
     max_silhouette_points, the augmentation (trans_max, scale_min,
     scale_max), seed, input_pipeline (only 'npz' is ported), data_dir,
-    datasets, mocap_datasets and smpl_model_path. fuse_preprocess and
-    steps_per_call select ``train.step.make_fused_train_step`` and
-    ``make_multi_step`` in the JAX trainer, which is not ported yet."""
+    datasets, val_datasets, mocap_datasets, smpl_model_path, and the
+    loop's fields (``train/trainer.py``): epoch, the logging and
+    validation cadences, checkpoint_dir / checkpoint_every_epochs /
+    train_from_checkpoint / init_encoder_from, fuse_preprocess and
+    steps_per_call (which step the trainer builds), num_examples_override,
+    logs / model_dir and the profiler window (profile_dir,
+    profile_start_step, profile_end_step: a ``torch.profiler`` trace).
+    mesh_axis (data parallelism) is not ported."""
 
     # --- assets
     smpl_model_path: str = "models/model.pkl"
@@ -173,3 +181,60 @@ def parse_config(argv: Optional[Sequence[str]] = None) -> Config:
         if v is not None:
             overrides[f.name] = v
     return cfg.replace(**overrides)
+
+
+def run_name(cfg: Config, prefix: str = "HMR") -> str:
+    """The auto-named run directory encoding the hyperparameters, as the
+    JAX package names it."""
+    parts = [prefix]
+    if cfg.num_stage != 3:
+        parts.append(f"T{cfg.num_stage}")
+    parts.append(f"_{cfg.epoch}e_")
+    post = ["-".join(sorted(cfg.datasets))]
+    if sorted(cfg.mocap_datasets) != sorted(["CMU", "H3.6", "jointLim"]):
+        post.append("-".join(cfg.mocap_datasets))
+    post.append(f"Elr{cfg.generator_lr:.0e}")
+    if cfg.kpr_loss_weight != 1:
+        post.append(f"kp-weight{cfg.kpr_loss_weight:g}")
+    if not cfg.encoder_only:
+        post.append(f"Dlr{cfg.critic_lr:.0e}")
+        if cfg.critic_loss_weight != 1:
+            post.append(f"d-weight{cfg.critic_loss_weight:g}")
+    if cfg.use_mesh_repro_loss:
+        post.append("mr")
+    if cfg.use_kpr_loss:
+        post.append("kp")
+    if cfg.trans_max != 20:
+        post.append(f"transmax-{cfg.trans_max}")
+    if cfg.scale_max != 1.23:
+        post.append(f"scmax_{cfg.scale_max:.3g}")
+    if cfg.scale_min != 0.8:
+        post.append(f"scmin-{cfg.scale_min:.3g}")
+    stamp = datetime.now().strftime("%b%d_%H%M")
+    return "_".join(parts) + "_" + "_".join(post) + "_" + stamp
+
+
+def prepare_dirs(cfg: Config, prefix: str = "HMR") -> Config:
+    """Create the run/log directories and fill cfg.model_dir."""
+    cfg = cfg.replace(model_dir=os.path.join(cfg.logs, run_name(cfg, prefix)))
+    for path in (cfg.logs, cfg.model_dir, cfg.checkpoint_dir):
+        os.makedirs(path, exist_ok=True)
+    return cfg
+
+
+def save_config(cfg: Config) -> str:
+    """Dump the full config to params.json in the run dir."""
+    if not cfg.model_dir:
+        raise ValueError("cfg.model_dir is not set; call prepare_dirs first")
+    path = os.path.join(cfg.model_dir, "params.json")
+    with open(path, "w") as fp:
+        json.dump(dataclasses.asdict(cfg), fp, indent=4, sort_keys=True)
+    return path
+
+
+def load_config(path: str) -> Config:
+    """A Config from a params.json; keys this Config lacks are ignored."""
+    with open(path) as fp:
+        raw = json.load(fp)
+    known = {f.name for f in dataclasses.fields(Config)}
+    return Config(**{k: v for k, v in raw.items() if k in known})

@@ -55,6 +55,8 @@ def make_image_pipeline(cfg: Config, datasets: Optional[Sequence[str]] = None, m
     _refuse_unported(cfg)
     from .npz_dataset import NpzImagePipeline
 
+    # the npz pipeline always augments on the device, as the JAX one does
+    kw.pop("device_preprocess", None)
     names = list(datasets if datasets is not None else cfg.datasets)
     return NpzImagePipeline(cfg, npz_shard_files(cfg.data_dir, names), mode=mode, **kw)
 

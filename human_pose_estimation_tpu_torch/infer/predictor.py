@@ -4,8 +4,10 @@
 Pads partial batches to a fixed batch size, ships uint8 images to the
 device (4x less host->device traffic than f32) and normalizes them there,
 runs encoder -> 3x IEF -> SMPL on the last stage, and returns the wanted
-outputs. Restoring from a checkpoint, data-parallel serving and the int8
-encoder are not ported yet.
+outputs. Without explicit weights it restores them from
+``config.checkpoint_dir`` (``utils/checkpoint.restore_for_inference``: this
+package's checkpoints or the JAX package's). Data-parallel serving and the
+int8 encoder are not ported yet.
 """
 from __future__ import annotations
 
@@ -37,12 +39,12 @@ class Predictor:
     ):
         """variables: the state dict of models.hmr.HMR (from training, or
         from the JAX package through models/port_jax.py); mean_theta: the
-        (1, 85) initial estimate. outputs: restrict the returned keys.
+        (1, 85) initial estimate. Without either, both are restored from
+        ``config.checkpoint_dir`` (fresh from ``config.seed`` when it holds
+        no checkpoint). The encoder is the one ``config`` describes
+        (``encoder_depth``, or ``encoder_stage_sizes`` when set); weights of
+        another shape are refused. outputs: restrict the returned keys.
         device: ``cuda`` unless the caller asks for the CPU."""
-        if variables is None or mean_theta is None:
-            raise NotImplementedError(
-                "restoring from a checkpoint is not ported yet; pass variables and mean_theta"
-            )
         if data_parallel:
             raise NotImplementedError("data-parallel serving is not ported yet")
         if encoder_int8 or config.encoder_int8 or calibration_images is not None:
@@ -62,8 +64,25 @@ class Predictor:
             encoder_stage_sizes=stage_sizes,
             encoder_depth=config.encoder_depth,
             device=device,
+            seed=config.seed,
         )
-        self.hmr.load_state_dict(variables)
+        source = "the given variables"
+        if variables is None or mean_theta is None:
+            from ..utils.checkpoint import restore_for_inference
+
+            variables, mean_theta = restore_for_inference(config.checkpoint_dir, self.hmr, config)
+            source = f"the checkpoint under {config.checkpoint_dir!r}"
+        try:
+            self.hmr.load_state_dict(variables)
+        except RuntimeError as e:
+            encoder = (
+                f"encoder_stage_sizes={config.encoder_stage_sizes!r}"
+                if config.encoder_stage_sizes
+                else f"encoder_depth={config.encoder_depth}"
+            )
+            raise RuntimeError(
+                f"the weights of {source} do not fit the configured encoder ({encoder}): {e}"
+            ) from e
         self.device = self.hmr.device
         self.mean_theta = torch.as_tensor(mean_theta, dtype=torch.float32).reshape(1, -1).to(self.device)
 

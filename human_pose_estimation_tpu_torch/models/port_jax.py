@@ -11,7 +11,10 @@ no JAX. Layout changes:
 * a training state (``train_state_from_jax``): the weights as above, the
   step, and each optax Adam state's ``mu`` / ``nu`` / ``count`` as the
   torch Adam's ``exp_avg`` / ``exp_avg_sq`` / ``step``, with the weights'
-  transposes.
+  transposes. The state may be the JAX ``TrainState`` itself or the plain
+  nested containers of a checkpoint read without a template
+  (``utils/orbax_import.py``), where the optax chain is an index-keyed
+  list of dicts instead of ``ScaleByAdamState`` objects.
 
 Module names match the Flax names one to one (models/resnet.py), so the
 walk is generic.
@@ -86,13 +89,25 @@ def _gen_tree_to_torch(tree: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _get(node, name: str):
+    """A field of a state object, or the same key of its plain-dict form."""
+    return node[name] if isinstance(node, Mapping) else getattr(node, name)
+
+
+def _has(node, name: str) -> bool:
+    return name in node if isinstance(node, Mapping) else hasattr(node, name)
+
+
 def _adam(opt_state, to_torch) -> Dict:
-    """The ``ScaleByAdamState`` inside an optax ``adam`` chain state."""
-    adam = next(s for s in opt_state if hasattr(s, "mu") and hasattr(s, "nu"))
+    """The Adam moments inside an optax ``adam`` chain state: a tuple of
+    states (``ScaleByAdamState`` among them) or its plain form, a list or
+    an index-keyed dict of dicts (``None`` for an ``EmptyState``)."""
+    parts = opt_state.values() if isinstance(opt_state, Mapping) else opt_state
+    adam = next(s for s in parts if s is not None and _has(s, "mu") and _has(s, "nu"))
     return {
-        "step": int(np.asarray(adam.count)),
-        "exp_avg": to_torch(adam.mu),
-        "exp_avg_sq": to_torch(adam.nu),
+        "step": int(np.asarray(_get(adam, "count"))),
+        "exp_avg": to_torch(_get(adam, "mu")),
+        "exp_avg_sq": to_torch(_get(adam, "nu")),
     }
 
 
@@ -101,17 +116,19 @@ def train_state_from_jax(state) -> Dict:
     state)``) -> the dict that ``train.state.TrainState.load_state_dict``
     takes: ``step``, ``hmr`` (state dict), ``mean_theta``, ``critic``
     (state dict), and ``gen_adam`` / ``critic_adam`` ({'step', 'exp_avg',
-    'exp_avg_sq'}, the moments keyed by torch parameter name)."""
-    gen = state.gen_params
+    'exp_avg_sq'}, the moments keyed by torch parameter name). ``state``
+    may also be the plain nested dict of its fields (a checkpoint read
+    without a template)."""
+    gen = _get(state, "gen_params")
     variables = {
         "params": {k: gen[k] for k in ("encoder", "regressor")},
-        "batch_stats": state.batch_stats,
+        "batch_stats": _get(state, "batch_stats"),
     }
     return {
-        "step": int(np.asarray(state.step)),
+        "step": int(np.asarray(_get(state, "step"))),
         "hmr": hmr_state_dict(variables),
         "mean_theta": mean_theta(gen["mean_theta"]),
-        "critic": flax_to_state_dict(state.critic_params),
-        "gen_adam": _adam(state.gen_opt, _gen_tree_to_torch),
-        "critic_adam": _adam(state.critic_opt, flax_to_state_dict),
+        "critic": flax_to_state_dict(_get(state, "critic_params")),
+        "gen_adam": _adam(_get(state, "gen_opt"), _gen_tree_to_torch),
+        "critic_adam": _adam(_get(state, "critic_opt"), flax_to_state_dict),
     }

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, List, Mapping, Tuple
+from typing import Callable, Dict, List, Mapping, Tuple
 
 import torch
 from torch import nn
@@ -20,7 +20,14 @@ from ..config import Config
 from ..models.critic import Critic
 from ..models.hmr import HMR
 
-__all__ = ["ADAM_EPS", "TrainState", "create_train_state", "gen_named_params", "make_optimizers"]
+__all__ = [
+    "ADAM_EPS",
+    "TrainState",
+    "create_train_state",
+    "gen_named_params",
+    "make_optimizers",
+    "step_generator",
+]
 
 # Keras Adam's default epsilon, which the reference's optimizers use and
 # the JAX package passes to optax; torch's default is 1e-8.
@@ -72,6 +79,17 @@ def _set_update_count(sched: LambdaLR, count: int) -> None:
     sched._last_lr = [g["lr"] for g in sched.optimizer.param_groups]
 
 
+def _adam_state(opt: torch.optim.Optimizer, named: List[Tuple[str, torch.Tensor]], count: int) -> Dict:
+    """An Adam's moments keyed by parameter name (zeros before its first
+    update) and its update count: the inverse of ``_load_adam``."""
+    exp_avg, exp_avg_sq = {}, {}
+    for name, p in named:
+        st = opt.state.get(p, {})
+        exp_avg[name] = st["exp_avg"].detach().clone() if "exp_avg" in st else torch.zeros_like(p.detach())
+        exp_avg_sq[name] = st["exp_avg_sq"].detach().clone() if "exp_avg_sq" in st else torch.zeros_like(p.detach())
+    return {"step": count, "exp_avg": exp_avg, "exp_avg_sq": exp_avg_sq}
+
+
 def _load_adam(opt: torch.optim.Optimizer, named: List[Tuple[str, torch.Tensor]], adam: Mapping) -> None:
     sd = opt.state_dict()
     sd["state"] = {
@@ -119,6 +137,35 @@ class TrainState:
         ):
             _load_adam(opt, named, adam)
             _set_update_count(sched, int(adam["step"]))
+
+    def state_dict(self) -> Dict:
+        """The inverse of ``load_state_dict``, in the layout of
+        ``models.port_jax.train_state_from_jax``: ``step``, ``hmr`` (weights
+        and BN statistics), ``mean_theta``, ``critic``, and ``gen_adam`` /
+        ``critic_adam`` ({'step': the update count, which is also the
+        schedule's position, 'exp_avg', 'exp_avg_sq'}). Tensors are copies,
+        on the state's device."""
+        named_critic = list(self.critic.named_parameters())
+        return {
+            "step": int(self.step),
+            "hmr": {k: v.detach().clone() for k, v in self.hmr.state_dict().items()},
+            "mean_theta": self.mean_theta.detach().clone(),
+            "critic": {k: v.detach().clone() for k, v in self.critic.state_dict().items()},
+            "gen_adam": _adam_state(
+                self.gen_opt, gen_named_params(self.hmr, self.mean_theta), self.gen_sched.last_epoch
+            ),
+            "critic_adam": _adam_state(self.critic_opt, named_critic, self.critic_sched.last_epoch),
+        }
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of the dispatch that starts at ``step``: seeded from
+    (``seed``, ``step``) alone, as the JAX loop folds its key on
+    ``state.step``, so that a run resumed from a checkpoint draws what the
+    straight run drew."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF))
+    return gen
 
 
 def _stage_sizes(cfg: Config):

@@ -150,12 +150,17 @@ def test_predictor_matches_jax(bridged, tiny_model, rng):
     assert set(tp.predict(images[:2])) == {"generated_joints"}
 
 
-def test_predictor_refuses_unported_options(bridged):
+def test_predictor_refuses_unported_options(bridged, tmp_path):
+    """Data-parallel serving and the int8 encoder are refused. Without
+    variables the Predictor restores from ``checkpoint_dir`` (fresh from
+    ``seed`` when it holds no checkpoint)."""
     _, _, _, _, _, hmr_sd, mean = bridged
-    cfg = Config(img_size=IMG, batch_size=BATCH, encoder_dtype="float32", encoder_stage_sizes="1,1,1,1")
+    cfg = Config(img_size=IMG, batch_size=BATCH, encoder_dtype="float32", encoder_stage_sizes="1,1,1,1",
+                 checkpoint_dir=str(tmp_path / "empty"), seed=3)
     smpl = synthetic_model(num_verts=30)
-    with pytest.raises(NotImplementedError):
-        Predictor(cfg, smpl=smpl, device="cpu")  # checkpoint restore
+    restored = Predictor(cfg, smpl=smpl, device="cpu")
+    seeded = HMR(smpl, encoder_stage_sizes=STAGES, device="cpu", seed=3).state_dict()
+    assert all(torch.equal(v, seeded[k]) for k, v in restored.hmr.state_dict().items())
     for kw in (dict(data_parallel=True), dict(encoder_int8=True)):
         with pytest.raises(NotImplementedError):
             Predictor(cfg, smpl=smpl, variables=hmr_sd, mean_theta=mean, device="cpu", **kw)
@@ -180,28 +185,37 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port (the training state and step,
-    the CUDA kernels' wrappers and the data modules among them) loads no
-    jax, flax, optax or JAX package module, and no OpenCV (the card's
-    machine has none); chip_smoke.py imports none of them either."""
+    """Importing every module of the port (the training state, step and
+    loop, the checkpoints and the Orbax importer, the command lines, the
+    renderer, the CUDA kernels' wrappers and the data modules among them)
+    loads no jax, flax, optax, orbax or JAX package module, and none of the
+    optional host libraries that are imported only where they are used
+    (OpenCV, tensorboardX, tensorstore, TensorFlow: the card's machine has
+    none of them); chip_smoke.py imports none of them either."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import human_pose_estimation_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'human_pose_estimation_tpu', 'cv2'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'human_pose_estimation_tpu', 'cv2', 'tensorboardX', "
+        "'tensorstore', 'tensorflow'))\n"
         "mods = [m for m in sys.modules if m.startswith('human_pose_estimation_tpu_torch')]\n"
         "missing = {'human_pose_estimation_tpu_torch.train.state', 'human_pose_estimation_tpu_torch.train.step', "
         "'human_pose_estimation_tpu_torch.ops.cuda_chamfer', 'human_pose_estimation_tpu_torch.ops.losses', "
         "'human_pose_estimation_tpu_torch.data.augment', 'human_pose_estimation_tpu_torch.data.pipeline', "
-        "'human_pose_estimation_tpu_torch.data.npz_dataset'} - set(mods)\n"
+        "'human_pose_estimation_tpu_torch.data.npz_dataset', 'human_pose_estimation_tpu_torch.data.tfrecords', "
+        "'human_pose_estimation_tpu_torch.train.trainer', 'human_pose_estimation_tpu_torch.utils.checkpoint', "
+        "'human_pose_estimation_tpu_torch.utils.orbax_import', 'human_pose_estimation_tpu_torch.utils.summary', "
+        "'human_pose_estimation_tpu_torch.utils.image', 'human_pose_estimation_tpu_torch.viz.renderer', "
+        "'human_pose_estimation_tpu_torch.cli.train', 'human_pose_estimation_tpu_torch.cli.validate_checkpoint', "
+        "'human_pose_estimation_tpu_torch.cli.predict'} - set(mods)\n"
         "print(len(mods), bad, sorted(missing))\n"
         "sys.exit(1 if bad or missing else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 27  # every module was imported
+    assert int(proc.stdout.split()[0]) >= 41  # every module was imported
 
     tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
     names = set()
@@ -210,7 +224,8 @@ def test_port_imports_no_jax():
             names.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             names.add(node.module or "")
-    banned = {"jax", "jaxlib", "flax", "optax", "human_pose_estimation_tpu", "cv2"}
+    banned = {"jax", "jaxlib", "flax", "optax", "orbax", "human_pose_estimation_tpu", "cv2", "tensorboardX",
+              "tensorstore", "tensorflow"}
     assert not {n for n in names if n.split(".")[0] in banned}, names
 
 
