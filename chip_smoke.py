@@ -17,9 +17,17 @@ canvases and the raw mocap stream of ``NpzMocapPipeline`` (``[fused-train]``),
 the augmentation and silhouettes on the card against the CPU
 (``[augment-parity]``), ``make_multi_step`` against sequential steps
 (``[multi-step]``) and the rematerialised encoder against the plain one
-(``[remat]``), each with its kernels' launches counted; and last holds one
-f64 training step on the card against the same step on the CPU. Every
-phase prints one line; any failure raises and the script exits non-zero.
+(``[remat]``), each with its kernels' launches counted; the training loop
+(``[trainer]``); then the int8 encoder and the serving stack: the
+post-training int8 encoder at full width against bf16 and f32 and
+against itself on the CPU (``[int8]``), the int8 graph under evaluation
+with K1's launches counted and ``validate_checkpoint`` on ``[trainer]``'s
+checkpoint (``[int8-eval]``), ``BatchingPredictor`` at pipeline depths 1
+and 2 (``[batching]``), the HTTP server under a client process
+(``[http]``) and the ``torch.export`` artifacts for ``cuda`` and ``cpu``,
+loaded again in a fresh process (``[export]``); and last holds one f64
+training step on the card against the same step on the CPU. Every phase
+prints one line; any failure raises and the script exits non-zero.
 The line before the last is a JSON object with one entry per ported
 kernel; the last line is ``{"ok": true, "device": {...}}``.
 
@@ -1522,6 +1530,655 @@ def _phase_trainer(torch, cc, card, smpl, mean_theta, train_ms):
     )
 
 
+# ---------------------------------------------------------------------------
+# the serving stack and the int8 encoder
+
+
+def _perturbed_weights(torch, smpl, seed=11):
+    """The seeded HMR's state dict with its encoder's BN parameters, running
+    statistics and convolution biases perturbed as
+    tests/test_quantize.py::_realistic_variables does (var * exp(0.1 N);
+    mean, bias and scale + 0.05 N), so that activations survive the ReLUs
+    and folding is not trivial."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, v in _seeded_hmr(smpl, "bfloat16", "cuda").state_dict().items():
+        if k.startswith("encoder.") and v.is_floating_point():
+            noise = torch.randn(v.shape, generator=gen).to(v.device)
+            if k.endswith("running_var"):
+                v = v * torch.exp(0.1 * noise)
+            elif k.endswith(("running_mean", ".bias")) or (k.endswith(".weight") and v.dim() == 1):
+                v = v + 0.05 * noise
+        out[k] = v
+    return out
+
+
+def _rel_l2(torch, a, b) -> float:
+    return float(torch.linalg.vector_norm((a - b).double()) / torch.linalg.vector_norm(b.double()))
+
+
+def _alternate(fns, rounds):
+    """Host seconds of each of ``fns`` over ``rounds`` rounds, their order
+    reversed every other round (a, b, b, a, ...); each call ends with the
+    results on the host."""
+    times = [[] for _ in fns]
+    for r in range(rounds):
+        order = list(range(len(fns)))[:: 1 if r % 2 == 0 else -1]
+        for i in order:
+            t0 = time.perf_counter()
+            fns[i]()
+            times[i].append(time.perf_counter() - t0)
+    return times
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _int8_breakdown(torch, q, fn):
+    """Device ms of one call of ``fn`` (the int8 encoder) under the
+    profiler: in total, inside ``_int_mm`` (the int8 GEMMs), inside the
+    rest of ``_conv_i8`` (the im2col copies, the K padding and the
+    accumulator's cast) and outside both (quantize and dequantize
+    epilogues, residual adds, the pool); and its kernel launches.
+    ``_conv_i8`` and ``_int_mm`` are wrapped in record_function ranges for
+    this call only."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    conv, mm = q._conv_i8, q._int_mm
+
+    def ranged(name, f):
+        def call(*a, **kw):
+            with record_function(name):
+                return f(*a, **kw)
+        return call
+
+    q._conv_i8, q._int_mm = ranged("smoke.conv_i8", conv), ranged("smoke.int_mm", mm)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        q._conv_i8, q._int_mm = conv, mm
+    events = prof.key_averages()
+    kernels = [
+        e for e in events
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+        and not getattr(e, "is_user_annotation", False)
+    ]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    span = {
+        e.key: e.device_time_total / 1e3 for e in events
+        if e.key.startswith("smoke.") and e.device_type == torch.autograd.DeviceType.CPU
+    }
+    gemm = span.get("smoke.int_mm", 0.0)
+    conv_ms = span.get("smoke.conv_i8", 0.0)
+    return total, gemm, conv_ms - gemm, total - conv_ms, sum(e.count for e in kernels)
+
+
+def phase_int8(torch, card, smpl, mean_theta):
+    """The post-training int8 encoder at full width: ResNet-50, 224 px,
+    batch 64, calibrated on 64 images, on weights whose BN is perturbed
+    (``_perturbed_weights``). Its img/s against the bf16 Predictor, timed
+    alternately on the same requests; the int8 features against the f32
+    encoder (relative L2, limit 0.03); the int8 encoder on the card
+    against the CPU on two images (relative L2, limit 1e-3: the integer
+    accumulations are exact); the device time of its GEMMs against the
+    im2col copies and the epilogues; lazy calibration from a padded first
+    batch; an uncalibrated export refused. Returns the int8 predictor."""
+    import numpy as np
+
+    from human_pose_estimation_tpu_torch.config import Config
+    from human_pose_estimation_tpu_torch.infer.export import export_predictor
+    from human_pose_estimation_tpu_torch.infer.predictor import Predictor, normalize
+    from human_pose_estimation_tpu_torch.models import quantize as q
+    from human_pose_estimation_tpu_torch.models.hmr import HMR
+
+    batch, img = 64, 224
+    weights = _perturbed_weights(torch, smpl)
+    cfg = Config(batch_size=batch, img_size=img, encoder_dtype="bfloat16")
+    rng = np.random.RandomState(12)
+    calib = rng.randint(0, 256, size=(batch, img, img, 3)).astype("uint8")
+    requests = rng.randint(0, 256, size=(5 * batch, img, img, 3)).astype("uint8")
+    t0 = time.perf_counter()
+    int8 = Predictor(cfg, smpl=smpl, variables=weights, mean_theta=mean_theta, encoder_int8=True,
+                     calibration_images=calib)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    bf16 = Predictor(cfg, smpl=smpl, variables=weights, mean_theta=mean_theta)
+    qp, stages = int8.encoder_qparams, int8.hmr.encoder.stage_sizes
+    if qp["act"] is None or len(qp["act"]) != 2 + 3 * sum(stages):
+        raise AssertionError("the int8 predictor did not calibrate every activation site")
+
+    outs = {"bf16": bf16.predict(requests), "int8": int8.predict(requests)}  # warm-up, and the outputs
+    for name, out in outs.items():
+        for k, a in out.items():
+            if a.shape[0] != 5 * batch or not np.isfinite(a).all():
+                raise AssertionError(f"{name} output {k}: shape {a.shape} or not finite")
+    rounds = 4
+    t_bf16, t_int8 = _alternate([lambda: bf16.predict(requests), lambda: int8.predict(requests)], rounds)
+    ips_bf16, ips_int8 = 5 * batch / float(np.median(t_bf16)), 5 * batch / float(np.median(t_int8))
+    verts_diff = float(np.abs(outs["int8"]["generated_verts"] - outs["bf16"]["generated_verts"]).max())
+
+    # the int8 features against the f32 encoder on one batch
+    f32 = HMR(smpl, encoder_dtype="float32", device="cuda")
+    f32.load_state_dict(weights)
+    x = normalize(torch.from_numpy(requests[:batch]).cuda())
+    with torch.inference_mode():
+        feat_f32 = f32.encoder(x)
+        feat_i8 = q.resnet_apply_int8(qp["weights"], x, stages, act_scales=qp["act"])
+        feat_bf16 = bf16.hmr._encode(x)
+    rel_f32, rel_bf16 = _rel_l2(torch, feat_i8, feat_f32), _rel_l2(torch, feat_bf16, feat_f32)
+    if not rel_f32 <= 0.03:
+        raise AssertionError(f"int8 features are {rel_f32:.4f} from the f32 encoder's (relative L2; limit 0.03)")
+
+    # the same int8 encoder on the card and on the CPU, two images
+    with torch.inference_mode():
+        on_card = q.resnet_apply_int8(qp["weights"], x[:2], stages, act_scales=qp["act"]).cpu()
+        on_cpu = q.resnet_apply_int8(_tree_to(qp["weights"], "cpu"), x[:2].cpu(), stages,
+                                     act_scales=_tree_to(qp["act"], "cpu"))
+    rel_cpu = _rel_l2(torch, on_card, on_cpu)
+    if not rel_cpu <= 1e-3:
+        raise AssertionError(f"the int8 encoder on the card is {rel_cpu:.2e} from the CPU's (relative L2; limit 1e-3)")
+
+    # where the int8 encoder's device time goes, one batch
+    with torch.inference_mode():
+        total, gemm, im2col, rest, launches = _int8_breakdown(
+            torch, q, lambda: q.resnet_apply_int8(qp["weights"], x, stages, act_scales=qp["act"])
+        )
+    with torch.inference_mode():
+        enc_bf16_ms, enc_bf16_launches = _profiled_device_ms(torch, lambda: bf16.hmr._encode(x), calls=3)
+
+    # lazy calibration from a padded first batch, and the export refusal
+    lazy = Predictor(cfg, smpl=smpl, variables=weights, mean_theta=mean_theta, encoder_int8=True)
+    try:
+        export_predictor(lazy, os.path.join(SMOKE_DIR, "never.pt2"), platforms=("cuda",))
+        raise AssertionError("an uncalibrated int8 predictor was exported")
+    except ValueError as e:
+        if "UNCALIBRATED" not in str(e):
+            raise
+    lazy.predict(np.zeros((batch, img, img, 3), np.uint8), calibrate=False)
+    if lazy.encoder_qparams["act"] is not None:
+        raise AssertionError("a warm-up call (calibrate=False) froze the int8 scales")
+    lazy.predict(requests[:37])
+    act = lazy.encoder_qparams["act"]
+    want = q.calibrate_resnet(lazy.encoder_qparams["weights"], normalize(torch.from_numpy(requests[:37]).cuda()),
+                              stages)
+    if act is None or any(not torch.equal(act[s], want[s]) for s in want):
+        raise AssertionError("lazy calibration did not take the 37 unpadded rows alone")
+    padded = q.calibrate_resnet(lazy.encoder_qparams["weights"], normalize(torch.from_numpy(
+        np.concatenate([requests[:37], np.zeros((batch - 37, img, img, 3), np.uint8)])).cuda()), stages)
+    moved = sum(not torch.equal(padded[s], want[s]) for s in want)
+    print(
+        f"[int8] PTQ encoder ResNet-50 {img}px batch {batch}, calibrated on {batch} images (fold + quantize + "
+        f"calibrate {quantize_s:.2f} s): {ips_int8:.1f} img/s against bf16 {ips_bf16:.1f} "
+        f"({ips_int8 / ips_bf16:.3f}x; median of {rounds} alternated runs of {5 * batch} uint8 images each; int8 "
+        f"min/max {5 * batch / max(t_int8):.1f}/{5 * batch / min(t_int8):.1f}, bf16 {5 * batch / max(t_bf16):.1f}/"
+        f"{5 * batch / min(t_bf16):.1f}) | features vs f32: int8 {rel_f32:.4f} (limit 0.03), bf16 {rel_bf16:.4f} "
+        f"(relative L2); verts int8 vs bf16 max {verts_diff:.3e} | card vs CPU, 2 images: {rel_cpu:.2e} (limit "
+        f"1e-3) | one batch of the encoder (profiler): {total:.3f} ms in {launches} launches: _int_mm "
+        f"{gemm:.3f} ms ({100 * gemm / total:.1f}%), im2col + K pad + accumulator cast {im2col:.3f} ms "
+        f"({100 * im2col / total:.1f}%), epilogues, adds and pool {rest:.3f} ms ({100 * rest / total:.1f}%); the "
+        f"bf16 encoder {enc_bf16_ms:.3f} ms in {enc_bf16_launches:.0f} launches | lazy calibration: warm-up keeps "
+        f"none, a first batch of 37 padded to {batch} calibrates on its 37 rows ({moved} of {len(want)} scales "
+        f"would move with the padding) | uncalibrated export refused | on {card}",
+        flush=True,
+    )
+    return int8
+
+
+def phase_int8_eval(torch, cc, card, smpl, mean_theta, num_batches=6):
+    """The int8 serving graph under evaluation: make_val_step with
+    encoder_qparams at ``[eval]``'s configuration (batch 8, P=16384, mesh
+    loss on 3 stages), calibrated on the first batch, against the float
+    step on the same HMR and batches, timed alternately; K1 three times per
+    batch; mr_losses finite and within 5% of the float step's; the int8
+    features against the float (bf16) encoder; then
+    Trainer.validate_checkpoint with encoder_int8 on ``[trainer]``'s
+    checkpoint."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from human_pose_estimation_tpu_torch.config import Config
+    from human_pose_estimation_tpu_torch.models import quantize as q
+    from human_pose_estimation_tpu_torch.models.critic import Critic
+    from human_pose_estimation_tpu_torch.models.hmr import HMR
+    from human_pose_estimation_tpu_torch.train.step import make_val_step
+    from human_pose_estimation_tpu_torch.train.trainer import Trainer
+
+    n, img, p = 8, 224, 16384
+    cfg = Config(batch_size=n, img_size=img, encoder_dtype="bfloat16", use_mesh_repro_loss=True,
+                 mr_metric_stages="all", max_silhouette_points=p)
+    hmr = HMR(smpl, encoder_dtype="bfloat16", device="cuda")
+    hmr.load_state_dict(_perturbed_weights(torch, smpl))
+    gen = torch.Generator().manual_seed(13)
+    critic = Critic()
+    critic.reset_parameters(gen)
+    critic = critic.cuda().eval()
+    val_step = make_val_step(hmr, critic, cfg)
+    batches = _eval_batches(torch, gen, n, p, img, num_batches + 1)
+    qp = hmr.quantize_encoder(calibration_images=batches[0].images)
+    mt = mean_theta.cuda()
+    k1 = cc.LAUNCHES
+    val_step(mt, batches[0])  # warm-up, both
+    val_step(mt, batches[0], qp)
+    torch.cuda.synchronize()
+
+    float_ms, int8_ms, worst_mr = [], [], 0.0
+    for i, batch in enumerate(batches[1:]):
+        got = {}
+        for mode in (("float", "int8") if i % 2 == 0 else ("int8", "float")):
+            before = cc.LAUNCHES
+            t0 = time.perf_counter()
+            got[mode] = val_step(mt, batch, qp if mode == "int8" else None)
+            torch.cuda.synchronize()
+            (int8_ms if mode == "int8" else float_ms).append(1e3 * (time.perf_counter() - t0))
+            if cc.LAUNCHES - before != 3:
+                raise AssertionError(f"a {mode} eval batch launched K1 {cc.LAUNCHES - before} times, not 3")
+        mr_f, mr_i = got["float"]["mr_losses"], got["int8"]["mr_losses"]
+        if not bool(torch.isfinite(mr_i).all()):
+            raise AssertionError(f"int8 mr_losses {mr_i.tolist()} are not finite")
+        rel = float(((mr_i - mr_f).abs() / mr_f.abs()).max())
+        if not rel <= 0.05:
+            raise AssertionError(f"int8 mr_losses {mr_i.tolist()} are {rel:.3f} from the float step's {mr_f.tolist()}")
+        worst_mr = max(worst_mr, rel)
+    with torch.no_grad():
+        x = batches[1].images
+        rel_feat = _rel_l2(torch, q.resnet_apply_int8(qp["weights"], x, hmr.encoder.stage_sizes, act_scales=qp["act"]),
+                           hmr._encode(x))
+
+    # validate_checkpoint with encoder_int8 on [trainer]'s checkpoint
+    ckdir = os.path.join(SMOKE_DIR, "trainer", "straight")
+    tcfg = cfg.replace(encoder_int8=True, checkpoint_dir=ckdir, model_dir=None, log_img_step=0)
+    trainer = Trainer(tcfg, val_dataset=[(b, n) for b in batches[1:5]], validation_only=True, smpl=smpl,
+                      device="cuda")
+    before = cc.LAUNCHES
+    with contextlib.redirect_stdout(io.StringIO()):  # its own summary lines
+        results = trainer.validate_checkpoint()
+    if cc.LAUNCHES - before != 12 or not all(np.isfinite(results[k]) for k in ("mean_kpr_loss", "mean_mr_loss")):
+        raise AssertionError(f"int8 validate_checkpoint: {results}, K1 launched {cc.LAUNCHES - before} times (not 12)")
+    print(
+        f"[int8-eval] make_val_step(encoder_qparams) batch {n} P={p} mr on 3 stages, calibrated on the first "
+        f"batch, against the float (bf16) step alternately over {num_batches} batches: {np.median(int8_ms):.2f} "
+        f"vs {np.median(float_ms):.2f} ms/batch median (int8 min {min(int8_ms):.2f} max {max(int8_ms):.2f}; float "
+        f"min {min(float_ms):.2f} max {max(float_ms):.2f}) | K1 launches {cc.LAUNCHES - k1} (3 per batch, both "
+        f"steps, and 12 in validate_checkpoint) | int8 mr_losses finite, at most {100 * worst_mr:.2f}% from the "
+        f"float step's (limit 5%) | int8 features vs the bf16 encoder {rel_feat:.4f} (relative L2) | "
+        f"validate_checkpoint(encoder_int8) on [trainer]'s step {trainer.state.step} checkpoint, 4 batches: kpr "
+        f"{results['mean_kpr_loss']:.4f} mr {results['mean_mr_loss']:.6f} PCK@0.5 {results['pck@0.5']:.4f} "
+        f"| on {card}",
+        flush=True,
+    )
+
+
+def _bf16_predictor(torch, smpl, mean_theta, batch=64, img=224):
+    from human_pose_estimation_tpu_torch.config import Config
+    from human_pose_estimation_tpu_torch.infer.predictor import Predictor
+
+    cfg = Config(batch_size=batch, img_size=img, encoder_dtype="bfloat16")
+    return Predictor(cfg, smpl=smpl, variables=_seeded_hmr(smpl, "bfloat16", "cuda").state_dict(),
+                     mean_theta=mean_theta)
+
+
+def _row_diff(out, direct, i):
+    """(largest absolute difference, bit-equal) of one result dict against
+    row i of a batched one."""
+    import numpy as np
+
+    diff = max(float(np.abs(out[k] - direct[k][i]).max()) for k in direct)
+    return diff, all(np.array_equal(out[k], direct[k][i]) for k in direct)
+
+
+def phase_batching(torch, card, pred, images):
+    """BatchingPredictor over the full-width bf16 Predictor (batch 64): 16
+    client threads each submit 40 single uint8 images back to back (640 in
+    all) and then wait, max_latency_ms=5, at pipeline_depth 1 and 2, timed
+    alternately with a direct predict of the 640 (1, 2, direct, direct, 2,
+    1, 1, 2, direct); img/s, p50 and p99 request latency, batches and padded slots; host
+    syncs per batch at depth 2 and in predict_async alone; every result
+    against the direct predict of its image (atol 1e-5)."""
+    import numpy as np
+
+    import threading
+
+    from human_pose_estimation_tpu_torch.infer.serving import BatchingPredictor
+
+    direct = pred.predict(images)  # also the warm-up
+    clients, per = 16, len(images) // 16
+
+    def run(depth):
+        bp = BatchingPredictor(pred, max_latency_ms=5.0, pipeline_depth=depth)
+        lat, res = [0.0] * len(images), [None] * len(images)
+
+        def client(c):
+            idx = range(c * per, (c + 1) * per)
+            sent = {i: (time.perf_counter(), bp.submit(images[i])) for i in idx}
+            for i, (t0, fut) in sent.items():
+                res[i] = fut.result(timeout=300)
+                lat[i] = time.perf_counter() - t0  # the wait of a result taken in order
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        secs = time.perf_counter() - t0
+        bp.close()
+        if any(t.is_alive() for t in threads) or any(r is None for r in res):
+            raise AssertionError(f"depth {depth}: a client did not finish")
+        return secs, lat, res, dict(bp.stats)
+
+    def run_direct(_):
+        t0 = time.perf_counter()
+        pred.predict(images)
+        return time.perf_counter() - t0, None, None, None
+
+    runs = {1: [], 2: [], "direct": []}
+    for depth in (1, 2, "direct", "direct", 2, 1, 1, 2, "direct"):
+        runs[depth].append(run_direct(depth) if depth == "direct" else run(depth))
+    direct_ips = [len(images) / r[0] for r in runs.pop("direct")]
+    t0 = time.perf_counter()
+    np.stack(list(images[:64]))
+    stack_ms = 1e3 * (time.perf_counter() - t0)
+    worst, bit_equal = 0.0, True
+    for depth, rs in runs.items():
+        for _, _, res, stats in rs:
+            if stats["requests"] != len(images):
+                raise AssertionError(f"depth {depth}: stats {stats}")
+            for i, out in enumerate(res):
+                d, eq = _row_diff(out, direct, i)
+                worst, bit_equal = max(worst, d), bit_equal and eq
+    if not worst <= 1e-5:
+        raise AssertionError(f"a batched result is {worst:.3e} from the direct predict (atol 1e-5)")
+
+    syncs_batches = []
+
+    def synced():
+        syncs_batches.append(run(2)[3]["batches"])
+
+    syncs = _host_syncs(torch, synced)
+    handle_syncs = _host_syncs(torch, lambda: syncs_batches.append(pred.predict_async(images[:64])))
+    pred.predict_fetch(syncs_batches.pop())
+
+    parts = []
+    for depth in (1, 2):
+        secs = [r[0] for r in runs[depth]]
+        lat = np.concatenate([np.asarray(r[1]) for r in runs[depth]]) * 1e3
+        stats = runs[depth][0][3]
+        parts.append(
+            f"depth {depth}: {len(images) / np.median(secs):.1f} img/s (runs {', '.join(f'{len(images) / s:.1f}' for s in secs)}), "
+            f"latency p50 {np.percentile(lat, 50):.1f} ms p99 {np.percentile(lat, 99):.1f} ms, "
+            f"{stats['batches']} batches, {stats['padded_slots']} padded slots"
+        )
+    print(
+        f"[batching] BatchingPredictor over Predictor ResNet-50 224px bf16 batch 64, {clients} threads x {per} "
+        f"uint8 images back to back, max_latency_ms=5, alternated 1, 2, direct, direct, 2, 1, 1, 2, direct | {' | '.join(parts)} "
+        f"| direct predict of the 640 (10 batches enqueued, then fetched): {np.median(direct_ips):.1f} img/s (runs "
+        f"{', '.join(f'{v:.1f}' for v in direct_ips)}) | np.stack of 64 requests {stack_ms:.2f} ms | host syncs "
+        f"{syncs / syncs_batches[0]:.2f} per batch at depth 2 ({syncs} in {syncs_batches[0]} batches), "
+        f"{handle_syncs} in predict_async | every result vs the direct predict: max {worst:.3e} (atol 1e-5)"
+        f"{', bit-equal' if bit_equal else ''} | on {card}",
+        flush=True,
+    )
+
+
+def _png_bytes(img) -> bytes:
+    """An 8-bit RGB PNG of ``img`` written with zlib, every row with the
+    Sub filter."""
+    import numpy as np
+
+    import struct
+    import zlib
+
+    h, w, _ = img.shape
+    x = img.reshape(h, w, 3).astype(np.int16)
+    sub = np.concatenate([x[:, :1], x[:, 1:] - x[:, :-1]], axis=1).astype(np.uint8).reshape(h, w * 3)
+    raw = np.concatenate([np.ones((h, 1), np.uint8), sub], axis=1).tobytes()
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b"")
+
+
+_HTTP_CLIENTS = """
+import json, os, sys, threading, time, urllib.request
+port, root, clients, per = int(sys.argv[1]), sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
+pngs = [open(os.path.join(root, f), "rb").read() for f in sorted(os.listdir(root)) if f.endswith(".png")]
+lat, lock = [], threading.Lock()
+
+def client(c):
+    for j in range(per):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/predict", data=pngs[(c * per + j) % len(pngs)],
+                                     method="POST")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            resp.read()
+        with lock:
+            lat.append(time.perf_counter() - t0)
+
+threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+t0 = time.perf_counter()
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+print(json.dumps({"secs": time.perf_counter() - t0, "lat": lat}))
+"""
+
+
+def phase_http(torch, card, pred, images):
+    """make_server on 127.0.0.1:0 over a BatchingPredictor (depth 2,
+    max_latency_ms=5) over the bf16 Predictor. A client process of its own
+    (so that the load shares no interpreter lock with the server) runs 8
+    threads that POST 224 px PNGs (written here with zlib), 32 each,
+    waiting for each answer: requests/s, p50 and p99 latency; the same load
+    again at a thread switch interval of 0.5 ms. Then the raw, json and
+    filtered forms, a bad request (400) and /healthz; response bytes per
+    form; the raw arrays against the direct predict; the host's own cost
+    of a decode and of a compressed response."""
+    import io
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    from human_pose_estimation_tpu_torch.infer.http_server import make_server
+    from human_pose_estimation_tpu_torch.infer.serving import BatchingPredictor
+
+    root = os.path.join(SMOKE_DIR, "http")
+    os.makedirs(root, exist_ok=True)
+    pngs = [_png_bytes(im) for im in images[:64]]
+    for i, body in enumerate(pngs):
+        with open(os.path.join(root, f"{i:02d}.png"), "wb") as f:
+            f.write(body)
+    direct = pred.predict(images[:64])
+    bp = BatchingPredictor(pred, max_latency_ms=5.0, pipeline_depth=2)
+    httpd = make_server(bp, host="127.0.0.1", port=0)
+    port = httpd.server_address[1]
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+
+    def post(i, query="", headers=None, body=None):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/predict{query}", data=body or pngs[i],
+                                     method="POST", headers=headers or {})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.read()
+
+    try:
+        for i in range(8):
+            post(i)  # warm-up
+        clients, per = 8, 32
+
+        def load():
+            """(seconds, latencies, batches, padded slots) of one run of the client process."""
+            before = dict(bp.stats)
+            proc = subprocess.run([sys.executable, "-c", _HTTP_CLIENTS, str(port), root, str(clients), str(per)],
+                                  capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"the client process failed: {proc.stderr[-2000:]}")
+            out = json.loads(proc.stdout.strip().splitlines()[-1])
+            if len(out["lat"]) != clients * per:
+                raise AssertionError(f"{len(out['lat'])} of {clients * per} requests answered")
+            return (out["secs"], out["lat"], bp.stats["batches"] - before["batches"],
+                    bp.stats["padded_slots"] - before["padded_slots"])
+
+        secs, lat, batches, padded = load()
+        # the same load with the interpreter's thread switch interval at
+        # 0.5 ms instead of 5: what the server's threads cost the
+        # dispatcher, whose eager forward takes and gives back the lock at
+        # every op
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(0.0005)
+        try:
+            fast = load()
+        finally:
+            sys.setswitchinterval(interval)
+        sizes, worst, bit_equal = {}, 0.0, True
+        for i in range(4):
+            z = np.load(io.BytesIO(post(i, "?format=raw")))
+            d, eq = _row_diff({k: z[k] for k in z.files}, direct, i)
+            worst, bit_equal = max(worst, d), bit_equal and eq
+        if not worst <= 1e-5:
+            raise AssertionError(f"the raw npz is {worst:.3e} from the direct predict (atol 1e-5)")
+        sizes["npz"] = len(post(0))
+        sizes["raw"] = len(post(0, "?format=raw"))
+        body = post(0, headers={"Accept": "application/json"})
+        sizes["json"] = len(body)
+        if set(json.loads(body)) != {"generated_cams", "generated_joints", "theta"}:
+            raise AssertionError(f"json keys {sorted(json.loads(body))}")
+        body = post(0, "?outputs=generated_joints,generated_cams")
+        sizes["npz joints+cams"] = len(body)
+        if set(np.load(io.BytesIO(body)).files) != {"generated_joints", "generated_cams"}:
+            raise AssertionError("the outputs filter did not hold")
+        try:
+            post(0, body=b"not an image")
+            raise AssertionError("a bad request was answered 200")
+        except urllib.error.HTTPError as e:
+            if e.code != 400:
+                raise
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=30) as resp:
+            health = json.loads(resp.read())
+        if health["status"] != "ok" or health["requests"] < clients * per:
+            raise AssertionError(f"/healthz {health}")
+        t0 = time.perf_counter()
+        for i in range(8):
+            pred.predict(images[i : i + 1])
+        one_ms = 1e3 * (time.perf_counter() - t0) / 8
+        from human_pose_estimation_tpu_torch.utils.image import decode_image
+
+        t0 = time.perf_counter()
+        for body in pngs[:16]:
+            decode_image(body)
+        decode_ms = 1e3 * (time.perf_counter() - t0) / 16
+        t0 = time.perf_counter()
+        for i in range(16):
+            np.savez_compressed(io.BytesIO(), **{k: v[i] for k, v in direct.items()})
+        npz_ms = 1e3 * (time.perf_counter() - t0) / 16
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        bp.close()
+    lat_ms = np.asarray(lat) * 1e3
+    print(
+        f"[http] make_server over BatchingPredictor (depth 2, 5 ms) over Predictor ResNet-50 224px bf16 batch 64: "
+        f"a client process of {clients} threads x {per} PNG posts (224x224, Sub rows, "
+        f"{np.mean([len(b) for b in pngs]):.0f} B) waiting for each answer: {clients * per / secs:.1f} requests/s, "
+        f"latency p50 {np.percentile(lat_ms, 50):.1f} ms p99 {np.percentile(lat_ms, 99):.1f} ms, {batches} batches "
+        f"({clients * per / batches:.2f} requests each, {padded} padded slots; {1e3 * secs / batches:.1f} ms of wall "
+        f"per batch, a direct predict of one image {one_ms:.1f} ms; on the host, alone: decode_image {decode_ms:.2f} "
+        f"ms per PNG, the compressed npz {npz_ms:.2f} ms per response) | the same load at a thread switch "
+        f"interval of 0.5 ms (not 5): {clients * per / fast[0]:.1f} requests/s, p50 "
+        f"{np.percentile(np.asarray(fast[1]) * 1e3, 50):.1f} ms, {fast[2]} batches | response bytes "
+        f"{', '.join(f'{k} {v}' for k, v in sizes.items())} | raw arrays vs the direct predict max {worst:.3e} "
+        f"(atol 1e-5){', bit-equal' if bit_equal else ''} | bad request 400, /healthz ok | on {card}",
+        flush=True,
+    )
+
+
+def phase_export(torch, card, pred, int8, images):
+    """export_predictor at full width (bf16, batch 64) for cuda and cpu:
+    the artifact's bytes and export seconds; ExportedPredictor on cuda
+    against the live Predictor over 64 + 37 images (padding, and a second
+    batch), atol 1e-5; the img/s of both, timed alternately; the int8
+    predictor's artifact (cuda) against it, atol 5e-3; the artifact loaded
+    and run in a fresh process with only torch and the loader imported."""
+    import numpy as np
+
+    from human_pose_estimation_tpu_torch.infer.export import ExportedPredictor, export_predictor
+
+    root = os.path.join(SMOKE_DIR, "export")
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, "model.pt2")
+    t0 = time.perf_counter()
+    meta = export_predictor(pred, path, platforms=("cuda", "cpu"))
+    export_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(path)
+    t0 = time.perf_counter()
+    ep = ExportedPredictor(path)
+    load_s = time.perf_counter() - t0
+    sample = images[: 64 + 37]
+    got, want = ep.predict(sample), pred.predict(sample)
+    diff = max(float(np.abs(got[k] - want[k]).max()) for k in want)
+    if set(got) != set(want) or not diff <= 1e-5:
+        raise AssertionError(f"the artifact is {diff:.3e} from the live Predictor (atol 1e-5)")
+    bit_equal = all(np.array_equal(got[k], want[k]) for k in want)
+    timed = images[:320]
+    t_art, t_live = _alternate([lambda: ep.predict(timed), lambda: pred.predict(timed)], 6)
+
+    path8 = os.path.join(root, "model_int8.pt2")
+    t0 = time.perf_counter()
+    export_predictor(int8, path8, platforms=("cuda",))
+    export8_s = time.perf_counter() - t0
+    got8, want8 = ExportedPredictor(path8).predict(images[:64]), int8.predict(images[:64])
+    diff8 = max(float(np.abs(got8[k] - want8[k]).max()) for k in want8)
+    if not diff8 <= 5e-3:
+        raise AssertionError(f"the int8 artifact is {diff8:.3e} from the live int8 Predictor (atol 5e-3)")
+
+    np.save(os.path.join(root, "images.npy"), images[:64])
+    code = (
+        "import sys, numpy as np\n"
+        "from human_pose_estimation_tpu_torch.infer.export import ExportedPredictor\n"
+        f"out = ExportedPredictor({path!r}).predict(np.load({os.path.join(root, 'images.npy')!r}))\n"
+        f"np.save({os.path.join(root, 'verts.npy')!r}, out['generated_verts'])\n"
+        "print(sorted(m for m in sys.modules if m.startswith(('human_pose_estimation_tpu', 'jax'))))\n"
+    )
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=HERE, capture_output=True, text=True, timeout=600)
+    fresh_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the fresh process failed: {proc.stderr[-2000:]}")
+    loaded = proc.stdout.strip().splitlines()[-1]
+    allowed = "['human_pose_estimation_tpu_torch', 'human_pose_estimation_tpu_torch.infer', " \
+              "'human_pose_estimation_tpu_torch.infer.export']"
+    if loaded != allowed:
+        raise AssertionError(f"the fresh process imported {loaded}")
+    fresh_diff = float(np.abs(np.load(os.path.join(root, "verts.npy")) - want["generated_verts"][:64]).max())
+    if not fresh_diff <= 1e-5:
+        raise AssertionError(f"the fresh process's verts are {fresh_diff:.3e} from the live Predictor's")
+    print(
+        f"[export] export_predictor ResNet-50 224px bf16 batch 64, platforms {meta['platforms']}: {nbytes} bytes, "
+        f"{export_s:.1f} s to export, {load_s:.1f} s to load on cuda | ExportedPredictor vs Predictor over 64 + 37 "
+        f"images: max {diff:.3e} (atol 1e-5){', bit-equal' if bit_equal else ''} | {len(timed) / np.median(t_art):.1f} "
+        f"img/s against the live {len(timed) / np.median(t_live):.1f} (median of 6 alternated runs of {len(timed)}; "
+        f"artifact {len(timed) / max(t_art):.1f}-{len(timed) / min(t_art):.1f}, live {len(timed) / max(t_live):.1f}-"
+        f"{len(timed) / min(t_live):.1f}) "
+        f"| int8 artifact (cuda, {os.path.getsize(path8)} bytes, {export8_s:.1f} s): max {diff8:.3e} from the live "
+        f"int8 Predictor (atol 5e-3) | a fresh process ({fresh_s:.1f} s) loaded it with {loaded} and matched "
+        f"(max {fresh_diff:.3e}) | on {card}",
+        flush=True,
+    )
+
+
 def main() -> int:
     try:
         import torch
@@ -1535,6 +2192,8 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+
+    import numpy as np
 
     from human_pose_estimation_tpu_torch import pin_f32_numerics
     from human_pose_estimation_tpu_torch.ops import cuda_chamfer as cc
@@ -1594,6 +2253,15 @@ def main() -> int:
 
     # the training loop, its checkpoints and validation sweep
     counted((phase_trainer, torch, cc, card, smpl, mean_theta, times["train"]))
+
+    # the int8 encoder (its evaluation reads [trainer]'s checkpoint) and the serving stack
+    int8 = phase_int8(torch, card, smpl, mean_theta)
+    counted((phase_int8_eval, torch, cc, card, smpl, mean_theta))
+    pred = _bf16_predictor(torch, smpl, mean_theta)
+    images = np.random.RandomState(14).randint(0, 256, size=(640, 224, 224, 3)).astype("uint8")
+    phase_batching(torch, card, pred, images)
+    phase_http(torch, card, pred, images)
+    phase_export(torch, card, pred, int8, images)
 
     phase_train_parity(torch, card, smpl, mean_theta)
 

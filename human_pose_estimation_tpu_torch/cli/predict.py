@@ -7,7 +7,8 @@ writing per-image SMPL outputs and optional renderings.
 
 Images are read and preprocessed on the host with OpenCV (scale / crop as
 in the demo), batched to the predictor's batch size, and pushed through
-the model restored from ``--checkpoint_dir``. Runs on ``cuda``.
+the model restored from ``--checkpoint_dir``; with ``--encoder_int8 true``
+the int8 encoder, calibrated on (up to 16 of) the inputs. Runs on ``cuda``.
 """
 from __future__ import annotations
 
@@ -55,7 +56,13 @@ def main(argv=None, device=None) -> None:
         print("no images found")
         return
 
-    predictor = Predictor(cfg, device=dev)
+    calib = None
+    if cfg.encoder_int8:
+        # calibrate the int8 activation scales on the first real inputs
+        from ..utils.image import load_calibration_images
+
+        calib = load_calibration_images(paths, cfg.img_size)
+    predictor = Predictor(cfg, calibration_images=calib, device=dev)
     renderer = None
     if args.render and predictor.smpl.faces is not None:
         renderer = SMPLRenderer(img_size=cfg.img_size, faces=predictor.smpl.faces)

@@ -23,7 +23,8 @@ class Config:
     loss weights and toggles, the learning rates and schedule,
     encoder_dtype ('float32' | 'bfloat16', autocast on the card),
     encoder_depth, encoder_stage_sizes (a shallow encoder, e.g. "1,1,1,1"),
-    encoder_int8 (refused: not ported), remat_encoder, mr_scale_mode,
+    encoder_int8 (the post-training int8 encoder for serving and the
+    validation sweep, ``models/quantize.py``), remat_encoder, mr_scale_mode,
     mr_metric_stages, cam_scale_hinge / margin, gp_mode,
     max_silhouette_points, the augmentation (trans_max, scale_min,
     scale_max), seed, input_pipeline (only 'npz' is ported), data_dir,

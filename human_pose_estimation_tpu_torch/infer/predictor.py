@@ -6,8 +6,13 @@ device (4x less host->device traffic than f32) and normalizes them there,
 runs encoder -> 3x IEF -> SMPL on the last stage, and returns the wanted
 outputs. Without explicit weights it restores them from
 ``config.checkpoint_dir`` (``utils/checkpoint.restore_for_inference``: this
-package's checkpoints or the JAX package's). Data-parallel serving and the
-int8 encoder are not ported yet.
+package's checkpoints or the JAX package's).
+
+``encoder_int8`` serves with the post-training int8 encoder
+(``models/quantize.py``): the weights are folded and quantized once here;
+the activation scales are calibrated on ``calibration_images`` when given,
+else on the first real batch served (its unpadded rows), never on a warm-up
+call (``calibrate=False``). Data-parallel serving is not ported yet.
 """
 from __future__ import annotations
 
@@ -19,6 +24,31 @@ import torch
 from ..config import Config
 from ..core.smpl import load_model
 from ..models.hmr import HMR
+
+
+def normalize(images: torch.Tensor) -> torch.Tensor:
+    """uint8 images to [-1, 1] in f32; float images pass as they are."""
+    if images.dtype == torch.uint8:
+        return images.float() / 127.5 - 1.0
+    return images
+
+
+def serving_graph(hmr: HMR, images: torch.Tensor, mean_theta: torch.Tensor, qparams=None,
+                  outputs: Optional[Tuple[str, ...]] = None) -> Dict[str, torch.Tensor]:
+    """The serving forward (the graph ``infer/export.py`` traces): normalize,
+    encoder (int8 with ``qparams``) -> IEF -> body model on the last stage,
+    and the wanted outputs."""
+    last = hmr(normalize(images), mean_theta, smpl_stages="last", encoder_qparams=qparams)[-1]
+    out = {
+        "generated_verts": last.verts,
+        "generated_cams": last.cam,
+        "generated_joints": last.joints3d,
+        "theta": last.theta,
+        "kp2d": last.kp2d,
+    }
+    if outputs is not None:
+        out = {k: out[k] for k in outputs}
+    return out
 
 
 class Predictor:
@@ -39,7 +69,10 @@ class Predictor:
     ):
         """variables: the state dict of models.hmr.HMR (from training, or
         from the JAX package through models/port_jax.py); mean_theta: the
-        (1, 85) initial estimate. Without either, both are restored from
+        (1, 85) initial estimate. encoder_int8 (or ``config.encoder_int8``):
+        serve the int8 encoder, calibrated on ``calibration_images`` ((N, H,
+        W, 3), uint8 or float in [-1, 1]) when given, else lazily on the first
+        real batch. Without either, both are restored from
         ``config.checkpoint_dir`` (fresh from ``config.seed`` when it holds
         no checkpoint). The encoder is the one ``config`` describes
         (``encoder_depth``, or ``encoder_stage_sizes`` when set); weights of
@@ -47,8 +80,6 @@ class Predictor:
         device: ``cuda`` unless the caller asks for the CPU."""
         if data_parallel:
             raise NotImplementedError("data-parallel serving is not ported yet")
-        if encoder_int8 or config.encoder_int8 or calibration_images is not None:
-            raise NotImplementedError("the int8 encoder is not ported yet")
         self.config = config
         self.batch_size = batch_size or config.batch_size
         self.outputs = tuple(outputs) if outputs else None
@@ -85,32 +116,28 @@ class Predictor:
             ) from e
         self.device = self.hmr.device
         self.mean_theta = torch.as_tensor(mean_theta, dtype=torch.float32).reshape(1, -1).to(self.device)
+        self.encoder_qparams = None
+        if encoder_int8 or config.encoder_int8:
+            calib = None
+            if calibration_images is not None:
+                calib = torch.as_tensor(np.asarray(calibration_images)).to(self.device)
+                calib = normalize(calib if calib.dtype == torch.uint8 else calib.float())
+            self.encoder_qparams = self.hmr.quantize_encoder(calibration_images=calib)
 
     @torch.inference_mode()
-    def _predict_impl(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        stages = self.hmr(self._normalize(images), self.mean_theta, smpl_stages="last")
-        last = stages[-1]
-        out = {
-            "generated_verts": last.verts,
-            "generated_cams": last.cam,
-            "generated_joints": last.joints3d,
-            "theta": last.theta,
-            "kp2d": last.kp2d,
-        }
-        if self.outputs is not None:
-            out = {k: out[k] for k in self.outputs}
-        return out
+    def _predict_impl(self, images: torch.Tensor, qparams=None) -> Dict[str, torch.Tensor]:
+        return serving_graph(self.hmr, images, self.mean_theta, qparams, self.outputs)
 
-    @staticmethod
-    def _normalize(images: torch.Tensor) -> torch.Tensor:
-        if images.dtype == torch.uint8:
-            return images.float() / 127.5 - 1.0
-        return images
-
-    def predict_async(self, images):
+    def predict_async(self, images, calibrate: bool = True):
         """Enqueue ONE padded batch (N <= batch_size) on the device without
         waiting; returns a handle for ``predict_fetch``. CUDA work is
-        asynchronous, so the caller can prepare the next batch meanwhile."""
+        asynchronous, so the caller can prepare the next batch meanwhile.
+
+        An int8 predictor without activation scales calibrates them on this
+        batch's unpadded rows and keeps them; ``calibrate=False`` marks a
+        warm-up call, which runs the same static-scale path on one-off
+        scales from the whole batch and keeps none (nor does an empty
+        request)."""
         images = np.asarray(images)
         if images.dtype != np.uint8:
             images = images.astype(np.float32)
@@ -126,24 +153,36 @@ class Predictor:
         if self.device.type == "cuda":
             host = host.pin_memory()
         device_images = host.to(self.device, non_blocking=True)
-        return self._predict_impl(device_images), n
+        qp = self.encoder_qparams
+        if qp is not None and qp["act"] is None:
+            from ..models.quantize import calibrate_resnet
+
+            freeze = calibrate and n > 0
+            rows = device_images[:n] if freeze else device_images
+            act = calibrate_resnet(qp["weights"], normalize(rows), self.hmr.encoder.stage_sizes)
+            qp = {"weights": qp["weights"], "act": act}
+            if freeze:
+                self.encoder_qparams = qp
+        return self._predict_impl(device_images, qp), n
 
     def predict_fetch(self, handle) -> Dict[str, np.ndarray]:
         """Wait for a ``predict_async`` handle; numpy outputs for its N rows."""
         out, n = handle
         return {k: v[:n].cpu().numpy() for k, v in out.items()}
 
-    def predict(self, images) -> Dict[str, np.ndarray]:
+    def predict(self, images, calibrate: bool = True) -> Dict[str, np.ndarray]:
         """Predict on a (N, H, W, 3) batch — float in [-1, 1], or uint8
         (normalized on the device). Pads N up to the batch size; larger
-        requests are cut into batches, all enqueued before any is fetched."""
+        requests are cut into batches, all enqueued before any is fetched.
+        calibrate=False: a warm-up call, which never keeps lazy int8
+        activation scales (``predict_async``)."""
         images = np.asarray(images)
         if images.dtype != np.uint8:
             images = images.astype(np.float32)
         n = images.shape[0]
         b = self.batch_size
-        handles = [self.predict_async(images[s : s + b]) for s in range(0, n, b)] or [
-            self.predict_async(images)  # n == 0
+        handles = [self.predict_async(images[s : s + b], calibrate) for s in range(0, n, b)] or [
+            self.predict_async(images, calibrate)  # n == 0
         ]
         parts = [self.predict_fetch(h) for h in handles]
         if len(parts) == 1:

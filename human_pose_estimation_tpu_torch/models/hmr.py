@@ -22,8 +22,12 @@ passed to ``forward``. With ``remat_encoder`` the train-mode encoder
 keeps no activations for the backward and recomputes them there
 (``torch.utils.checkpoint``); the recompute leaves the BN running
 statistics alone, so that they are updated once per step, as JAX's
-``jax.checkpoint`` returns them once. The int8 encoder
-(``encoder_qparams``) is not ported.
+``jax.checkpoint`` returns them once.
+
+The int8 serving encoder: ``HMR.quantize_encoder`` folds and quantizes the
+encoder's weights once (``models/quantize.py``), and ``forward(...,
+encoder_qparams=...)`` runs it in eval mode in place of the float encoder;
+the regressor and the body model run as in the float path.
 """
 from __future__ import annotations
 
@@ -151,6 +155,25 @@ class HMR(nn.Module):
                 m.update_running_stats = True
             self.encoder.train(was)
 
+    @torch.no_grad()
+    def quantize_encoder(self, calibration_images: Optional[torch.Tensor] = None):
+        """Fold BN into the encoder's convolutions and quantize them to int8
+        (post-training), for ``forward(..., encoder_qparams=...)``. With
+        ``calibration_images`` ((N, H, W, 3) in [-1, 1], on the module's
+        device) the activation scales are calibrated statically, the fast
+        path; without them they stay None (per-image dynamic scales)."""
+        from .quantize import calibrate_resnet, quantize_resnet
+
+        if getattr(self.encoder, "stem", "standard") != "standard":
+            raise ValueError("int8 encoder supports the standard stem only")
+        weights = quantize_resnet(
+            dict(self.encoder.named_parameters()), dict(self.encoder.named_buffers()), self.encoder.stage_sizes
+        )
+        act = None
+        if calibration_images is not None:
+            act = calibrate_resnet(weights, calibration_images, self.encoder.stage_sizes)
+        return {"weights": weights, "act": act}
+
     def _encode(self, images: torch.Tensor) -> torch.Tensor:
         with self._autocast():
             return self.encoder(images)
@@ -166,13 +189,20 @@ class HMR(nn.Module):
         """images (N, H, W, 3) in [-1, 1]; mean_theta (1, 85) initial
         estimate. Returns one StageOutput per IEF stage. In train mode
         ``generator`` (on the module's device) draws the dropout masks of
-        the last stage."""
-        if encoder_qparams is not None:
-            raise NotImplementedError("the int8 encoder is not ported yet")
+        the last stage. ``encoder_qparams`` (from ``quantize_encoder``,
+        inference only) runs the int8 encoder."""
+        if encoder_qparams is not None and self.training:
+            raise ValueError("encoder_qparams is an inference-only path")
         if smpl_stages not in ("all", "last"):
             raise ValueError("smpl_stages must be 'all' or 'last'")
         n = images.shape[0]
-        if self.training and self.remat_encoder:
+        if encoder_qparams is not None:
+            from .quantize import resnet_apply_int8
+
+            features = resnet_apply_int8(
+                encoder_qparams["weights"], images, self.encoder.stage_sizes, act_scales=encoder_qparams["act"]
+            )
+        elif self.training and self.remat_encoder:
             # the encoder draws no random numbers, so no RNG state is kept
             features = checkpoint(
                 self._encode,

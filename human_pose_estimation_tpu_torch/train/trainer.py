@@ -455,14 +455,22 @@ class Trainer:
     ) -> Dict[str, float]:
         """The full validation sweep: mean KPR / MR loss, PCK@0.5, the PCK
         curve at 0.1-0.5, its AUC and per-joint PCK, with optional best /
-        worst batch renders."""
+        worst batch renders. With ``config.encoder_int8`` the sweep runs
+        the int8 serving encoder, quantized from the restored weights and
+        calibrated on the first validation batch."""
         if restore:
             self.restore()
         if self.val_dataset is None:
             raise ValueError("validate_checkpoint needs a val dataset")
-        if self.config.encoder_int8:
-            raise NotImplementedError("the int8 encoder is not ported yet (ROADMAP.md section 1, item 7)")
         writer = self._writer("checkpoint_val")
+
+        qparams = None
+        if self.config.encoder_int8:
+            # quantize the restored encoder once, calibrate on the first
+            # validation batch, and sweep the int8 serving graph, so that
+            # the task metrics report its accuracy
+            first_batch, _ = next(iter(self.val_dataset))
+            qparams = self.state.hmr.quantize_encoder(calibration_images=first_batch.images)
 
         kpr_losses, mr_losses, pcks = [], [], []
         gts, preds = [], []  # accumulated for the PCK curve, AUC and per-joint PCK
@@ -470,7 +478,7 @@ class Trainer:
         worst = {"val": -np.inf, "batch": None, "out": None}
         step = 0
         for batch, n_valid in self.val_dataset:
-            out = self.val_step(self.state.mean_theta, batch)
+            out = self.val_step(self.state.mean_theta, batch, qparams)
             k = out["pred_keypoints"].shape[1]
             kpr, mr = torch.stack([out["kpr_losses"][-1], out["mr_losses"][-1]]).tolist()
             gt = batch.kp2d[:n_valid, :k].detach().cpu()

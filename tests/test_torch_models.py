@@ -169,8 +169,12 @@ def test_hmr_refuses_unported_paths(models):
     _, _, thmr = models
     images = torch.zeros(1, IMG, IMG, 3)
     mean = torch.zeros(1, 85)
-    with pytest.raises(NotImplementedError):
-        thmr(images, mean, encoder_qparams={"weights": None})
+    with pytest.raises(ValueError, match="inference-only"):  # int8 is an eval-mode path
+        thmr.train()
+        try:
+            thmr(images, mean, encoder_qparams=thmr.quantize_encoder(), generator=torch.Generator())
+        finally:
+            thmr.eval()
     with pytest.raises(ValueError):
         thmr(images, mean, smpl_stages="first")
     thmr.train()

@@ -151,7 +151,8 @@ def test_predictor_matches_jax(bridged, tiny_model, rng):
 
 
 def test_predictor_refuses_unported_options(bridged, tmp_path):
-    """Data-parallel serving and the int8 encoder are refused. Without
+    """Data-parallel serving is refused; the int8 encoder is not (it
+    leaves its activation scales to the first real batch). Without
     variables the Predictor restores from ``checkpoint_dir`` (fresh from
     ``seed`` when it holds no checkpoint)."""
     _, _, _, _, _, hmr_sd, mean = bridged
@@ -161,9 +162,10 @@ def test_predictor_refuses_unported_options(bridged, tmp_path):
     restored = Predictor(cfg, smpl=smpl, device="cpu")
     seeded = HMR(smpl, encoder_stage_sizes=STAGES, device="cpu", seed=3).state_dict()
     assert all(torch.equal(v, seeded[k]) for k, v in restored.hmr.state_dict().items())
-    for kw in (dict(data_parallel=True), dict(encoder_int8=True)):
-        with pytest.raises(NotImplementedError):
-            Predictor(cfg, smpl=smpl, variables=hmr_sd, mean_theta=mean, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        Predictor(cfg, smpl=smpl, variables=hmr_sd, mean_theta=mean, device="cpu", data_parallel=True)
+    int8 = Predictor(cfg, smpl=smpl, variables=hmr_sd, mean_theta=mean, device="cpu", encoder_int8=True)
+    assert set(int8.encoder_qparams) == {"weights", "act"} and int8.encoder_qparams["act"] is None
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
@@ -187,7 +189,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 def test_port_imports_no_jax():
     """Importing every module of the port (the training state, step and
     loop, the checkpoints and the Orbax importer, the command lines, the
-    renderer, the CUDA kernels' wrappers and the data modules among them)
+    renderer, the CUDA kernels' wrappers, the data modules, the int8
+    encoder and the serving stack among them)
     loads no jax, flax, optax, orbax or JAX package module, and none of the
     optional host libraries that are imported only where they are used
     (OpenCV, tensorboardX, tensorstore, TensorFlow: the card's machine has
@@ -209,13 +212,16 @@ def test_port_imports_no_jax():
         "'human_pose_estimation_tpu_torch.utils.orbax_import', 'human_pose_estimation_tpu_torch.utils.summary', "
         "'human_pose_estimation_tpu_torch.utils.image', 'human_pose_estimation_tpu_torch.viz.renderer', "
         "'human_pose_estimation_tpu_torch.cli.train', 'human_pose_estimation_tpu_torch.cli.validate_checkpoint', "
-        "'human_pose_estimation_tpu_torch.cli.predict'} - set(mods)\n"
+        "'human_pose_estimation_tpu_torch.cli.predict', 'human_pose_estimation_tpu_torch.models.quantize', "
+        "'human_pose_estimation_tpu_torch.infer.serving', 'human_pose_estimation_tpu_torch.infer.http_server', "
+        "'human_pose_estimation_tpu_torch.infer.export', 'human_pose_estimation_tpu_torch.cli.serve', "
+        "'human_pose_estimation_tpu_torch.cli.export_model'} - set(mods)\n"
         "print(len(mods), bad, sorted(missing))\n"
         "sys.exit(1 if bad or missing else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 41  # every module was imported
+    assert int(proc.stdout.split()[0]) >= 47  # every module was imported
 
     tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
     names = set()

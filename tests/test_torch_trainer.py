@@ -11,8 +11,9 @@ draw their dropout masks differently.
 
 The port's own contracts: 6 straight steps equal 3 + save + a fresh
 Trainer + 3 bit for bit (a resumable image stream and NpzMocapPipeline);
-the encoder graft; the profiler trace; the unknown-dataset error; int8
-refused; the three CLIs end to end on an npz sandbox. A ``cuda``-marked
+the encoder graft; the profiler trace; the unknown-dataset error; the int8
+validation sweep against a hand loop; the three CLIs end to end on an npz
+sandbox. A ``cuda``-marked
 test repeats the save / restore round trip on the card.
 """
 import glob
@@ -248,11 +249,27 @@ def test_unknown_dataset_size_raises_not_silent(workdir):
 
 
 def test_validate_checkpoint_refuses_int8(workdir, tmp_path):
+    """validate_checkpoint with encoder_int8 (no longer refused) sweeps the
+    int8 serving graph: the encoder quantized once and calibrated on the
+    first validation batch; the results equal a hand loop of make_val_step
+    with those int8 weights (rtol 1e-6) and differ from the float sweep."""
+    from human_pose_estimation_tpu_torch.train.step import make_val_step
+
+    rng = np.random.RandomState(6)
+    batches = [(_port_batch(_arrays(rng)), n) for n in (BATCH, 3)]
     t = Trainer(Config(**_kw(workdir, encoder_int8=True, checkpoint_dir=str(tmp_path / "none"))),
-                val_dataset=ImageStream(6), validation_only=True, smpl=synthetic_model(num_verts=120, seed=0),
+                val_dataset=batches, validation_only=True, smpl=synthetic_model(num_verts=120, seed=0),
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        t.validate_checkpoint()
+    results = t.validate_checkpoint()
+    qp = t.state.hmr.quantize_encoder(calibration_images=batches[0][0].images)
+    step = make_val_step(t.state.hmr, t.state.critic, t.config)
+    outs = [step(t.state.mean_theta, b, qp) for b, _ in batches]
+    np.testing.assert_allclose(results["mean_kpr_loss"], np.mean([float(o["kpr_losses"][-1]) for o in outs]),
+                               rtol=1e-6)
+    np.testing.assert_allclose(results["mean_mr_loss"], np.mean([float(o["mr_losses"][-1]) for o in outs]),
+                               rtol=1e-6)
+    t.config = t.config.replace(encoder_int8=False)
+    assert t.validate_checkpoint(restore=False)["mean_kpr_loss"] != results["mean_kpr_loss"]
 
 
 # ---------------------------------------------------------------------------
