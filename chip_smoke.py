@@ -18,7 +18,11 @@ the augmentation and silhouettes on the card against the CPU
 (``[augment-parity]``), ``make_multi_step`` against sequential steps
 (``[multi-step]``) and the rematerialised encoder against the plain one
 (``[remat]``), each with its kernels' launches counted; the training loop
-(``[trainer]``); then the int8 encoder and the serving stack: the
+(``[trainer]``); the closed loop (``[closed-loop]``): the full hybrid
+recipe trained through ``Trainer`` on rendered synthetic humans (the C++
+rasterizer, built with g++) at the quality bench's ``combined``
+configuration and evaluated against the parameters that generated them;
+then the int8 encoder and the serving stack: the
 post-training int8 encoder at full width against bf16 and f32 and
 against itself on the CPU (``[int8]``), the int8 graph under evaluation
 with K1's launches counted and ``validate_checkpoint`` on ``[trainer]``'s
@@ -1534,6 +1538,257 @@ def _phase_trainer(torch, cc, card, smpl, mean_theta, train_ms):
 # the serving stack and the int8 encoder
 
 
+# QUALITY.md's silhouette distribution: the JAX generator's 640 renders at 256 px
+QUALITY_SIL = {"sil_pixels_mean": 4114, "sil_pixels_p50": 3814, "sil_pixels_p99": 9214, "sil_pixels_max": 10233}
+
+
+class _Epochs:
+    """An image stream over rendered examples held in memory: each epoch a
+    seeded shuffle, cut into HostBatches of ``batch`` uint8 canvases (the
+    256 px renders themselves: the person window a tfrecord pipeline cuts
+    first covers every crop the augmentation can take), the remainder
+    dropped as a repeating tf.data stream drops it. ``iter`` hands back the
+    one running stream, so each ``Trainer.train`` call goes on where the
+    last stopped."""
+
+    def __init__(self, examples, batch, seed):
+        import numpy as np
+
+        self.examples, self.batch = examples, batch
+        self.rng = np.random.RandomState(seed)
+        self._stream = self._batches()
+
+    def _batches(self):
+        while True:
+            order = self.rng.permutation(len(self.examples))
+            for s in range(0, len(order) - self.batch + 1, self.batch):
+                yield _host_batch([self.examples[i] for i in order[s : s + self.batch]]), self.batch
+
+    def __iter__(self):
+        return self._stream
+
+
+def _host_batch(examples):
+    """A HostBatch of (rgb, silhouette, (3, 14) label) renders, as a
+    pipeline hands it over after decode: the canvases, their full extent,
+    the centre of the visible keypoints and the labels with 5 empty face
+    points."""
+    import numpy as np
+
+    from human_pose_estimation_tpu_torch.data.synthetic import _center_from_label
+    from human_pose_estimation_tpu_torch.train.step import HostBatch
+
+    n, size = len(examples), examples[0][0].shape[0]
+    label = np.zeros((n, 3, 19), np.float32)
+    label[:, :, :14] = np.stack([e[2] for e in examples])
+    return HostBatch(
+        image=np.stack([e[0] for e in examples]),
+        seg=np.stack([e[1] for e in examples]),
+        hw=np.full((n, 2), size, np.int32),
+        center=np.stack([_center_from_label(e[2]) for e in examples]).astype(np.int32),
+        label=label,
+    )
+
+
+def closed_loop(torch, cc, device="cuda", n_train=512, n_val=128, n_mocap=8192, render=256, img=224, batch=32,
+                steps=300, sil=16384, encoder_stage_sizes="", warm=10, sync_steps=5, window=30):
+    """The closed loop at the quality bench's ``combined`` configuration
+    (``benchmarks/quality_bench.py``): the 6890-vertex synthetic human,
+    ``n_train`` + ``n_val`` renders at ``render`` px from seed 0's streams
+    (the body model on ``device``, the C++ rasterizer on the host) and an
+    ``n_mocap`` prior from the same distribution through an npz shard and
+    ``NpzMocapPipeline``; ``Trainer`` (ResNet-50 bf16, ``img`` px, batch
+    ``batch``, lr 3e-4, keypoint + mesh + critic losses with GP, the
+    augmentation and the mocap body model inside the fused step) for
+    ``steps`` steps, evaluated at step 0 and at the end by
+    ``validate_checkpoint`` plus the vertex, Procrustes and camera-scale
+    errors against the generating parameters. As in the bench, the mesh
+    loss runs on the last stage only (``mr_metric_stages='last'``): K2
+    once per step, K1 once per validation batch. Returns the figures;
+    raises on a failed check."""
+    import contextlib
+    import io
+    import resource
+    import shutil
+
+    import numpy as np
+
+    from human_pose_estimation_tpu_torch import native
+    from human_pose_estimation_tpu_torch.config import Config
+    from human_pose_estimation_tpu_torch.core.smpl import smpl_forward
+    from human_pose_estimation_tpu_torch.data import synthetic
+    from human_pose_estimation_tpu_torch.data.npz_dataset import NpzMocapPipeline, write_mocap_npz_shard
+    from human_pose_estimation_tpu_torch.data.pipeline import DevicePreprocessor
+    from human_pose_estimation_tpu_torch.ops.metrics import pa_error
+    from human_pose_estimation_tpu_torch.train.trainer import Trainer
+    from human_pose_estimation_tpu_torch.utils.synthetic_human import synthetic_human_model
+
+    t_phase = time.perf_counter()
+    out = {}
+    # -- build and asset: no numpy fallback, 640 numpy renders would take minutes
+    if native.get_rasterizer() is None:
+        raise AssertionError(f"the C++ rasterizer did not build: {native.BUILD_LOG.get('rasterizer', '')}")
+    out["gxx_s"] = native.BUILD_SECONDS.get("rasterizer")  # None: built by an earlier run
+    t0 = time.perf_counter()
+    model = synthetic_human_model(num_verts=6890)
+    out["model_s"] = time.perf_counter() - t0
+
+    # -- data: the quality bench's generation at seed 0, held in memory
+    seed = 0
+    t0 = time.perf_counter()
+    train_ex, _, sil_tr = synthetic.render_split(model, n_train, np.random.RandomState(seed + 1), render, device=device)
+    val_ex, val_gt, sil_va = synthetic.render_split(model, n_val, np.random.RandomState(seed + 2), render, device=device)
+    out["render_ms"] = 1e3 * (time.perf_counter() - t0) / (n_train + n_val)
+    out["sil"] = synthetic.sil_stats(sil_tr + sil_va)
+    root = os.path.join(SMOKE_DIR, "closed_loop")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    mocap_path = os.path.join(root, "neutrSMPL_CMU_synth.npz")
+    write_mocap_npz_shard(mocap_path, *synthetic.sample_mocap(n_mocap, seed))
+    smpl = model.to(device)
+    with torch.no_grad():
+        gt_verts = smpl_forward(
+            smpl, torch.from_numpy(val_gt["beta"]).to(device), torch.from_numpy(val_gt["theta"]).to(device),
+            joint_type="lsp",
+        ).verts
+
+    # -- the trainer at the bench's combined configuration
+    cfg = Config(
+        datasets=["synth_train"], val_datasets=["synth_val"], mocap_datasets=["CMU"], num_examples_override=n_train,
+        img_size=img, batch_size=batch, epoch=10**9, generator_lr=3e-4, use_kpr_loss=True, use_mesh_repro_loss=True,
+        encoder_only=False, use_gradient_penalty=True, max_silhouette_points=sil, mr_metric_stages="last",
+        encoder_dtype="bfloat16", encoder_stage_sizes=encoder_stage_sizes, use_validation=False, log_img_step=0,
+        checkpoint_every_epochs=10**9, scalar_log_step=1, fuse_preprocess=True, seed=seed, model_dir=None,
+        checkpoint_dir=os.path.join(root, "ckpt"),
+    )
+    prep = DevicePreprocessor(cfg, augment=False, device=device)
+    val = []
+    for s in range(0, n_val, batch):
+        chunk = val_ex[s : s + batch]
+        val.append((prep(_host_batch(chunk)._asdict()), len(chunk)))
+    mocap = NpzMocapPipeline(cfg, smpl, [mocap_path], device_forward=False, seed=seed, device=device)
+    trainer = Trainer(cfg, dataset=_Epochs(train_ex, batch, seed), mocap_dataset=mocap, val_dataset=val,
+                      smpl=smpl, device=device)
+    log = io.StringIO()  # the loop's progress and epoch lines
+
+    val_step = trainer.val_step
+
+    def evaluate(step):
+        # one sweep of validate_checkpoint; its val_step's vertices and
+        # cameras are kept for the errors against the generating parameters
+        outs = []
+
+        def recording(*args):
+            outs.append(val_step(*args))
+            return outs[-1]
+
+        trainer.val_step = recording
+        k1 = cc.LAUNCHES
+        try:
+            with contextlib.redirect_stdout(log):
+                res = trainer.validate_checkpoint(restore=False)
+        finally:
+            trainer.val_step = val_step
+        launches = cc.LAUNCHES - k1
+        if device == "cuda" and launches != len(val):
+            raise AssertionError(f"an evaluation launched K1 {launches} times, not once per batch ({len(val)})")
+        verrs, paerrs, scales, at = [], [], [], 0
+        for o, (_, n) in zip(outs, val, strict=True):
+            pv, gv = o["verts"][:n].double().cpu(), gt_verts[at : at + n].double().cpu()
+            verrs.append(torch.linalg.vector_norm(pv - gv, dim=-1).mean(dim=-1))
+            paerrs.append(pa_error(pv, gv))
+            scales.append(o["cams"][:n, 0].double().cpu())
+            at += n
+        gt_s = torch.from_numpy(val_gt["cam"][:, 0]).double()
+        row = {
+            "config": "combined", "seed": seed, "step": step,
+            "rss_gb": round(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6, 1),
+            "kpr": round(res["mean_kpr_loss"], 4), "mr": round(res["mean_mr_loss"], 4),
+            "pck@0.5": round(res["pck@0.5"], 4), "pck_auc": round(res["pck_auc@0.5"], 4),
+            "vert_err": round(float(torch.cat(verrs).mean()), 4),
+            "pa_vert_err": round(float(torch.cat(paerrs).mean()), 4),
+            "cam_scale_ratio": round(float((torch.cat(scales) / gt_s.clamp(min=1e-6)).mean()), 4),
+        }
+        bad = [k for k, v in row.items() if isinstance(v, float) and not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"evaluation at step {step}: {bad} not finite: {row}")
+        return row
+
+    out["rows"] = [evaluate(0)]
+    k2 = cc.VALUE_GRAD_LAUNCHES
+    kpr = []
+    with contextlib.redirect_stdout(log):
+        kpr += trainer.train(max_steps=warm)["kpr"]  # the first step allocates the optimizer state
+        if device == "cuda":
+            holder = {}
+            syncs = _host_syncs(torch, lambda: holder.setdefault("kpr", trainer.train(max_steps=sync_steps)["kpr"]))
+            kpr += holder["kpr"]
+            out["syncs_per_step"] = syncs / sync_steps
+        else:
+            kpr += trainer.train(max_steps=sync_steps)["kpr"]
+            out["syncs_per_step"] = None
+        history = trainer.writers["train"].history
+        logged = len(history)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kpr += trainer.train(max_steps=steps - warm - sync_steps)["kpr"]
+        if device == "cuda":
+            torch.cuda.synchronize()
+        timed = steps - warm - sync_steps
+        out["wall_ms"] = 1e3 * (time.perf_counter() - t0) / timed
+        out["step_ms"] = float(np.median([ms for tag, _, ms in history[logged:] if tag == "perf/step_time_ms"]))
+    out["k2"] = cc.VALUE_GRAD_LAUNCHES - k2
+    if trainer.state.step != steps or len(kpr) != steps:
+        raise AssertionError(f"the loop took {trainer.state.step} steps and logged {len(kpr)} KPR values, not {steps}")
+    if device == "cuda" and out["k2"] != steps:
+        raise AssertionError(f"{steps} steps launched K2 {out['k2']} times, not once per step")
+    if out["syncs_per_step"] is not None and out["syncs_per_step"] > 1:
+        raise AssertionError(f"{out['syncs_per_step']} host syncs per logged step (at most 1)")
+    kpr = np.asarray(kpr)
+    if not np.isfinite(kpr).all():
+        raise AssertionError("a training KPR value is not finite")
+    out["kpr_head"], out["kpr_tail"] = float(kpr[:window].mean()), float(kpr[-window:].mean())
+    if not out["kpr_tail"] < out["kpr_head"]:
+        raise AssertionError(f"training KPR did not fall: first {window} {out['kpr_head']}, last {out['kpr_tail']}")
+    out["rows"].append(evaluate(steps))
+    out["steps"], out["phase_s"] = steps, time.perf_counter() - t_phase
+    if device == "cuda":  # where a step's time goes, after the measured run
+        with contextlib.redirect_stdout(log):
+            out["device_ms"], out["launches"] = _profiled_device_ms(torch, lambda: trainer.train(max_steps=1), calls=3)
+    return out
+
+
+def phase_closed_loop(torch, cc, card):
+    """The ``[closed-loop]`` phase: ``closed_loop`` at full width on the
+    card, one line for the build and the data, one per evaluation in the
+    quality bench's row schema, one for the training."""
+    r = closed_loop(torch, cc)
+    gxx = "cached" if r["gxx_s"] is None else f"{r['gxx_s']:.2f} s"
+    print(f"[closed-loop] g++ rasterizer {gxx} | synthetic_human_model(6890) {r['model_s']:.2f} s | {card}", flush=True)
+    sil = " / ".join(str(r["sil"][k]) for k in QUALITY_SIL)
+    ref = " / ".join(f"{v:,}" for v in QUALITY_SIL.values())
+    print(
+        f"[closed-loop] data: 640 renders at 256 px, {r['render_ms']:.2f} ms per render (body model on the card, "
+        f"C++ rasterizer) | silhouette pixels mean / p50 / p99 / max {sil} (QUALITY.md, the JAX generator: {ref}) "
+        f"| mocap 8192 through NpzMocapPipeline | {card}",
+        flush=True,
+    )
+    for row in r["rows"]:
+        print(f"[closed-loop] {json.dumps(row)}", flush=True)
+    first, last = r["rows"]
+    print(
+        f"[closed-loop] train: {r['steps']} steps ResNet-50 224 px bf16 batch 32, {r['step_ms']:.2f} ms per step "
+        f"(median of the loop's own, {r['wall_ms']:.2f} by the wall clock) | train KPR first 30 {r['kpr_head']:.3f} "
+        f"-> last 30 {r['kpr_tail']:.3f} | val KPR {first['kpr']} -> {last['kpr']}, PCK@0.5 {first['pck@0.5']} -> "
+        f"{last['pck@0.5']} | K2 {r['k2']} launches (1 per step), K1 1 per validation batch | host syncs per logged "
+        f"step {r['syncs_per_step']:.2f} | phase {r['phase_s']:.1f} s | afterwards, one step (profiler, 3 steps): "
+        f"device busy {r['device_ms']:.3f} ms ({100 * r['device_ms'] / r['step_ms']:.1f}% of the median step) in "
+        f"{r['launches']:.0f} launches | {card}",
+        flush=True,
+    )
+
+
 def _perturbed_weights(torch, smpl, seed=11):
     """The seeded HMR's state dict with its encoder's BN parameters, running
     statistics and convolution biases perturbed as
@@ -2253,6 +2508,9 @@ def main() -> int:
 
     # the training loop, its checkpoints and validation sweep
     counted((phase_trainer, torch, cc, card, smpl, mean_theta, times["train"]))
+
+    # the closed loop: rendered humans, the full hybrid recipe, quality against the generating parameters
+    counted((phase_closed_loop, torch, cc, card))
 
     # the int8 encoder (its evaluation reads [trainer]'s checkpoint) and the serving stack
     int8 = phase_int8(torch, card, smpl, mean_theta)

@@ -27,7 +27,7 @@ class Config:
     validation sweep, ``models/quantize.py``), remat_encoder, mr_scale_mode,
     mr_metric_stages, cam_scale_hinge / margin, gp_mode,
     max_silhouette_points, the augmentation (trans_max, scale_min,
-    scale_max), seed, input_pipeline (only 'npz' is ported), data_dir,
+    scale_max), seed, input_pipeline ('grain' is not ported), data_dir,
     datasets, val_datasets, mocap_datasets, smpl_model_path, and the
     loop's fields (``train/trainer.py``): epoch, the logging and
     validation cadences, checkpoint_dir / checkpoint_every_epochs /

@@ -107,6 +107,18 @@ def load_model(path: str) -> SMPLModel:
     )
 
 
+def save_model_npz(model: SMPLModel, path: str) -> None:
+    """Write ``model`` in the npz layout ``load_model_npz`` reads (the JAX
+    package's layout: f32 arrays, int32 parents, (0, 3) faces when there
+    are none)."""
+    np.savez(
+        path,
+        **{k: getattr(model, k).detach().cpu().numpy() for k in _TENSOR_FIELDS},
+        parents=np.asarray(model.parents, dtype=np.int32),
+        faces=model.faces if model.faces is not None else np.zeros((0, 3), np.int32),
+    )
+
+
 def load_model_npz(path: str) -> SMPLModel:
     z = np.load(path)
     faces = z["faces"]

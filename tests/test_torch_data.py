@@ -304,9 +304,16 @@ def test_pipeline_factories_take_npz_and_refuse_the_rest(tmp_path, mocap_shard, 
     assert tdata.npz_mocap_files(str(tmp_path), ["CMU", "jointLim"]) == [str(mocap_dir / os.path.basename(mocap_shard))]
     mocap = tdata.make_mocap_pipeline(mcfg, synthetic_model(num_verts=30), device="cpu")
     assert isinstance(mocap, tnpz.NpzMocapPipeline) and mocap.pose.shape == (20, 72)
-    for name in ("tfrecord", "native", "grain"):
-        other = cfg.replace(input_pipeline=name)
-        with pytest.raises(NotImplementedError, match="item 4"):
-            tdata.make_image_pipeline(other, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 4"):
-            tdata.make_mocap_pipeline(other, synthetic_model(num_verts=30), device="cpu")
+    # tfrecord and native are ported (tests/test_torch_native.py); grain
+    # is refused, never served by another pipeline
+    native = tdata.make_image_pipeline(cfg.replace(input_pipeline="native"), datasets=["lsp_5"], mode="val", device="cpu")
+    assert type(native).__name__ == "NativeImagePipeline" and native.batch_size == 2
+    assert isinstance(
+        tdata.make_mocap_pipeline(mcfg.replace(input_pipeline="native"), synthetic_model(num_verts=30), device="cpu"),
+        tnpz.NpzMocapPipeline,
+    )
+    other = cfg.replace(input_pipeline="grain")
+    with pytest.raises(NotImplementedError, match="item 4"):
+        tdata.make_image_pipeline(other, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 4"):
+        tdata.make_mocap_pipeline(other, synthetic_model(num_verts=30), device="cpu")

@@ -190,7 +190,8 @@ def test_port_imports_no_jax():
     """Importing every module of the port (the training state, step and
     loop, the checkpoints and the Orbax importer, the command lines, the
     renderer, the CUDA kernels' wrappers, the data modules, the int8
-    encoder and the serving stack among them)
+    encoder and the serving stack, the native libraries' loader, the native
+    and tf.data pipelines and the closed-loop synthetic data among them)
     loads no jax, flax, optax, orbax or JAX package module, and none of the
     optional host libraries that are imported only where they are used
     (OpenCV, tensorboardX, tensorstore, TensorFlow: the card's machine has
@@ -215,13 +216,16 @@ def test_port_imports_no_jax():
         "'human_pose_estimation_tpu_torch.cli.predict', 'human_pose_estimation_tpu_torch.models.quantize', "
         "'human_pose_estimation_tpu_torch.infer.serving', 'human_pose_estimation_tpu_torch.infer.http_server', "
         "'human_pose_estimation_tpu_torch.infer.export', 'human_pose_estimation_tpu_torch.cli.serve', "
-        "'human_pose_estimation_tpu_torch.cli.export_model'} - set(mods)\n"
+        "'human_pose_estimation_tpu_torch.cli.export_model', 'human_pose_estimation_tpu_torch.native', "
+        "'human_pose_estimation_tpu_torch.data.native_pipeline', 'human_pose_estimation_tpu_torch.data.synthetic', "
+        "'human_pose_estimation_tpu_torch.utils.synthetic_human', 'human_pose_estimation_tpu_torch.cli.create_synthetic'"
+        "} - set(mods)\n"
         "print(len(mods), bad, sorted(missing))\n"
         "sys.exit(1 if bad or missing else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 47  # every module was imported
+    assert int(proc.stdout.split()[0]) >= 52  # every module was imported
 
     tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
     names = set()

@@ -5,9 +5,10 @@ the same numpy inputs: ``viz/renderer.py`` (the numpy rasterizer,
 ``data/tfrecords.py`` (writers, parsers, the dataset-size table).
 
 Every output is compared exactly: the port's copies run the same numpy,
-OpenCV and TensorFlow calls. The JAX ``SMPLRenderer`` reaches the C++
-rasterizer for flat shading, which the port does not carry; there it is
-held against the JAX numpy rasterizer, the C++ one's own specification.
+OpenCV and TensorFlow calls. Both packages' ``rasterize_mesh`` take their
+C++ rasterizer for flat shading by default; the port's ``SMPLRenderer``
+(on its C++ rasterizer) is held against the JAX renderer pinned to its
+numpy rasterizer, the C++ one's own specification.
 """
 import functools
 
@@ -60,11 +61,16 @@ def test_rasterize_mesh_matches_jax(mesh, lighting, background):
     bg = np.random.RandomState(1).rand(72, 80, 3) if background else None
     kw = dict(height=72, width=80, focal=110.0, center=np.array([41.0, 35.5]), color=viz.MESH_COLORS[1],
               background=bg, lighting=lighting)
-    img, mask = viz.rasterize_mesh(verts, faces, **kw)
+    img, mask = viz.rasterize_mesh(verts, faces, use_native=False, **kw)
     assert mask.any() and not mask.all()
     _assert_same((img, mask), jviz.rasterize_mesh(verts, faces, use_native=False, **kw))
-    with pytest.raises(NotImplementedError, match="native"):
-        viz.rasterize_mesh(verts, faces, use_native=True, **kw)
+    # the C++ rasterizer (flat shading; 'points' stays on numpy in both
+    # packages): element-equal to the JAX package's C++ build, its masks
+    # element-equal to the numpy path and its images within 1e-12
+    nimg, nmask = viz.rasterize_mesh(verts, faces, use_native=True, **kw)
+    _assert_same((nimg, nmask), jviz.rasterize_mesh(verts, faces, use_native=True, **kw))
+    np.testing.assert_array_equal(nmask, mask)
+    np.testing.assert_allclose(nimg, img, rtol=0, atol=1e-12)
 
 
 @pytest.mark.parametrize(
