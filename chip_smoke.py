@@ -840,9 +840,10 @@ def phase_train(torch, cc, card, smpl, mean_theta, num_steps=10):
 
 def _parity_step(torch, smpl, mean_theta, cfg, batch, mocap, device, dtype):
     """One make_train_step from the seeded state in ``dtype`` on ``device``
-    with dropout rate 0, the GP uniforms from a fixed CPU generator, and
-    SGD with rate 1 (so that before - after is the gradient): (metrics,
-    gradients), both on the CPU in f64."""
+    with dropout rate 0, the GP uniforms of the global batch from a fixed
+    CPU generator, and SGD with rate 1 (so that before - after is the
+    gradient): (metrics, gradients, the HMR's BN statistics), on the CPU in
+    f64. Under a process group ``batch`` and ``mocap`` are this rank's rows."""
     from torch.optim.lr_scheduler import LambdaLR
 
     from human_pose_estimation_tpu_torch.train import step as tstep
@@ -873,7 +874,8 @@ def _parity_step(torch, smpl, mean_theta, cfg, batch, mocap, device, dtype):
     finally:
         tstep._gp_uniforms = drawn
     grads = {k: (before[k] - t.detach()).cpu().double() for k, t in params.items()}
-    return {f: v.cpu().double() for f, v in vars(metrics).items()}, grads
+    stats = {k: v.cpu().double() for k, v in state.hmr.state_dict().items() if k.endswith(("_mean", "_var"))}
+    return {f: v.cpu().double() for f, v in vars(metrics).items()}, grads, stats
 
 
 def _worst(out, ref):
@@ -881,7 +883,7 @@ def _worst(out, ref):
     gradient max error relative to each tensor's largest magnitude, with a
     floor of 1e-5 of the largest gradient of all: the conv biases before a
     BN have an exact zero gradient, of which both sides hold only rounding)."""
-    (m_out, g_out), (m_ref, g_ref) = out, ref
+    (m_out, g_out), (m_ref, g_ref) = out[:2], ref[:2]
     worst_m = max(float((m_out[f] - r).abs().max()) / max(float(r.abs().max()), 1e-30) for f, r in m_ref.items())
     scale = max(float(g.abs().max()) for g in g_ref.values())
     worst_g, leaf = max(
@@ -2434,7 +2436,376 @@ def phase_export(torch, card, pred, int8, images):
     )
 
 
+# ---------------------------------------------------------------------------
+# [data-parallel]: the step over ranks, in child processes (this process never
+# initializes a process group)
+
+DP_DIR = os.path.join(SMOKE_DIR, "dp")
+DP_CHILD_TIMEOUT = 420  # seconds per child run: a hung rendezvous fails the phase
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_children(part: str, world: int):
+    """``python chip_smoke.py --dp-child PART`` as ``world`` ranks with
+    torchrun's environment; each child's last stdout line is its JSON
+    result. A child that fails or outlives the timeout fails the phase."""
+    port = _free_port()
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+        for var in ("NCCL_SOCKET_IFNAME", "GLOO_SOCKET_IFNAME"):  # the loopback: no network here
+            env.setdefault(var, "lo")
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-child", part], env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=HERE))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DP_CHILD_TIMEOUT))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"[data-parallel] ({part}) rank {r} exited {p.returncode}:\n{out[-3000:]}\n{err[-6000:]}")
+    return [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+
+
+class _OneProcess:
+    """The one-process path while a process group is up: ``parallel.mesh``
+    reports no group inside the block (the plain step of ``[data-parallel]``
+    (a), on the same inputs in the same process)."""
+
+    def __init__(self, pmesh):
+        self.pmesh = pmesh
+
+    def __enter__(self):
+        self.real = self.pmesh.is_distributed
+        self.pmesh.is_distributed = lambda: False
+
+    def __exit__(self, *exc):
+        self.pmesh.is_distributed = self.real
+
+
+def _tensor_digest(torch, tensors) -> str:
+    """sha256 of the tensors' bytes in name order (ranks that must hold the
+    same state compare digests)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(k.encode())
+        h.update(tensors[k].detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_child_a(torch, cc):
+    """One rank on NCCL at ``[train]``'s full width: the data-parallel
+    make_train_step and the plain step (the group hidden) one step each
+    from equal states on the same batch and generator seed (new states
+    compared), then alternated for timing; the NCCL all-reduce's device ms
+    per step (profiler); a data-parallel Predictor batch of 64 against the
+    plain one."""
+    import numpy as np
+
+    from human_pose_estimation_tpu_torch.config import Config
+    from human_pose_estimation_tpu_torch.infer.predictor import Predictor
+    from human_pose_estimation_tpu_torch.models.port_jax import mean_theta as to_mean_theta
+    from human_pose_estimation_tpu_torch.parallel import mesh as pmesh
+    from human_pose_estimation_tpu_torch.train.state import create_train_state
+    from human_pose_estimation_tpu_torch.train.step import make_train_step
+    from human_pose_estimation_tpu_torch.utils.assets import synthetic_mean_params, synthetic_model
+
+    pmesh.maybe_initialize_distributed("cuda")
+    backend = torch.distributed.get_backend()
+    if backend != "nccl" or pmesh.world_size() != 1:
+        raise AssertionError(f"expected a world-1 NCCL group, got {backend} x {pmesh.world_size()}")
+    smpl = synthetic_model(num_verts=6890, seed=0)
+    mean_theta = to_mean_theta(synthetic_mean_params())
+    n, img, p, rounds = 8, 224, 16384, 5
+    cfg = Config(batch_size=n, img_size=img, encoder_dtype="bfloat16", use_mesh_repro_loss=True,
+                 mr_metric_stages="all", max_silhouette_points=p, use_gradient_penalty=True)
+    dp_state = create_train_state(smpl, mean_theta, cfg, device="cuda", seed=0)
+    with _OneProcess(pmesh):
+        plain_state = create_train_state(smpl, mean_theta, cfg, device="cuda", seed=0)
+    step = make_train_step(cfg, device="cuda")
+    batches = _train_batches(torch, smpl, n, p, img, rounds + 1, seed=2, device="cuda")
+    gen = lambda: torch.Generator(device="cuda").manual_seed(0)  # noqa: E731
+
+    launches = {"LAUNCHES": 0, "VALUE_GRAD_LAUNCHES": 0}
+
+    def dp_step(batch, mocap, g):
+        k1, k2 = cc.LAUNCHES, cc.VALUE_GRAD_LAUNCHES
+        m = step(dp_state, batch, mocap, g)
+        torch.cuda.synchronize()
+        launches["LAUNCHES"] += cc.LAUNCHES - k1
+        launches["VALUE_GRAD_LAUNCHES"] += cc.VALUE_GRAD_LAUNCHES - k2
+        return m
+
+    def plain_step(batch, mocap, g):
+        with _OneProcess(pmesh):
+            m = step(plain_state, batch, mocap, g)
+        torch.cuda.synchronize()
+        return m
+
+    # the check: one step each from equal states, same batch, same seed
+    m_plain, m_dp = plain_step(*batches[0], gen()), dp_step(*batches[0], gen())
+    got, want = _state_tensors(dp_state), _state_tensors(plain_state)
+    equal = all(torch.equal(got[k], w) for k, w in want.items()) and all(
+        torch.equal(getattr(m_dp, f), getattr(m_plain, f)) for f in vars(m_plain))
+    state_rel, state_leaf = _max_rel(torch, got, want)
+    metric_rel = max(float((getattr(m_dp, f).double() - v.double()).abs().max()) / max(float(v.abs().max()), 1e-30)
+                     for f, v in vars(m_plain).items())
+    if not equal and (state_rel > 1e-6 or metric_rel > 1e-6):
+        raise AssertionError(f"world-1 step vs plain: state {state_rel:.2e} ({state_leaf}), metrics {metric_rel:.2e}")
+
+    # timing: the two steps alternated, each on its own state
+    plain_ms, dp_ms = [], []
+    for batch, mocap in batches[1:]:
+        for fn, times in ((plain_step, plain_ms), (dp_step, dp_ms)):
+            t0 = time.perf_counter()
+            fn(batch, mocap, gen())
+            times.append(1e3 * (time.perf_counter() - t0))
+    # under the profiler, 2 steps of each: device time, the NCCL kernels'
+    # device time, and the collectives' calls and host time
+    from torch.profiler import ProfilerActivity, profile
+
+    profiled = {}
+    for name, fn in (("plain", plain_step), ("dp", dp_step)):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for batch, mocap in batches[1:3]:
+                fn(batch, mocap, gen())
+        events = prof.key_averages()
+        rows = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0 and not getattr(e, "is_user_annotation", False)]
+        nccl = [e for e in rows if "nccl" in e.key.lower()]
+        calls = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
+                 and e.key.startswith(("nccl:", "c10d::allreduce", "c10d::broadcast"))]
+        profiled[name] = {
+            "device_ms": sum(e.self_device_time_total for e in rows) / 1e3 / 2,
+            "nccl_ms": sum(e.self_device_time_total for e in nccl) / 1e3 / 2,
+            "nccl_launches": sum(e.count for e in nccl) / 2,
+            "collectives": {e.key: (e.count / 2, e.cpu_time_total / 1e3 / 2) for e in calls},
+            "rows": {e.key: (e.count / 2, e.self_device_time_total / 1e3 / 2) for e in rows},
+        }
+
+    def plain_unsynced():
+        with _OneProcess(pmesh):
+            step(plain_state, *batches[1], gen())
+
+    syncs = {"plain": _host_syncs(torch, plain_unsynced),
+             "dp": _host_syncs(torch, lambda: step(dp_state, *batches[1], gen()))}
+
+    # serving: a data-parallel Predictor (one replica per local card) against the plain one
+    variables, mean = dp_state.hmr.state_dict(), dp_state.mean_theta.detach()
+    pcfg = Config(batch_size=64, img_size=img, encoder_dtype="bfloat16")
+    dp_pred = Predictor(pcfg, smpl=smpl, variables=variables, mean_theta=mean, data_parallel=True, device="cuda")
+    plain_pred = Predictor(pcfg, smpl=smpl, variables=variables, mean_theta=mean, device="cuda")
+    images = np.random.RandomState(21).randint(0, 256, size=(64, img, img, 3)).astype("uint8")
+    a, b = dp_pred.predict(images), plain_pred.predict(images)
+    pred_err = max(float(np.abs(a[k] - b[k]).max()) for k in b)
+    if pred_err > 1e-5:
+        raise AssertionError(f"data-parallel Predictor vs plain: max abs {pred_err:.3e} > 1e-5")
+    torch.distributed.destroy_process_group()
+    return {
+        "bit_equal": bool(equal), "state_rel": state_rel, "metric_rel": metric_rel,
+        "plain_ms": float(np.median(plain_ms)), "dp_ms": float(np.median(dp_ms)), "rounds": rounds,
+        "profiled": profiled, "syncs": syncs,
+        "replicas": len(dp_pred.replicas), "pred_err": pred_err, "launches": launches,
+    }
+
+
+def _dp_child_b(torch, cc):
+    """One of two ranks sharing the card over gloo (NCCL refuses two ranks
+    on one device): the f64 step at ``[train-parity]``'s configuration on
+    this rank's 4 of 8 rows (results to DP_DIR for the parent's check
+    against one process), then a full-width Trainer for 3 steps with a
+    checkpoint by rank 0, restored on both ranks, and a
+    ``validate_checkpoint`` sweep of global means."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from human_pose_estimation_tpu_torch.config import Config
+    from human_pose_estimation_tpu_torch.data.npz_dataset import NpzMocapPipeline
+    from human_pose_estimation_tpu_torch.models.port_jax import mean_theta as to_mean_theta
+    from human_pose_estimation_tpu_torch.parallel import mesh as pmesh
+    from human_pose_estimation_tpu_torch.train.step import GenBatch, MocapBatch
+    from human_pose_estimation_tpu_torch.train.trainer import Trainer
+    from human_pose_estimation_tpu_torch.utils.assets import synthetic_mean_params, synthetic_model
+
+    torch.cuda.set_device(0)
+    torch.distributed.init_process_group("gloo", init_method="env://", rank=int(os.environ["RANK"]),
+                                         world_size=int(os.environ["WORLD_SIZE"]))
+    if not pmesh.maybe_initialize_distributed("cuda") or torch.distributed.get_backend() != "gloo":
+        raise AssertionError("expected the caller's 2-rank gloo group to stay")
+    rank = pmesh.rank()
+    smpl = synthetic_model(num_verts=6890, seed=0)
+    mean_theta = to_mean_theta(synthetic_mean_params())
+
+    # (b1) the f64 step on this rank's rows of [train-parity]'s batch of 8
+    n, img, p = 8, 224, 2048
+    cfg = Config(batch_size=n // 2, img_size=img, encoder_dtype="float32", use_mesh_repro_loss=True)
+    (batch, mocap), = _train_batches(torch, smpl, n, p, img, 1, seed=3, device="cpu")
+    batch = GenBatch(*(pmesh.local_rows(t) for t in batch))
+    mocap = MocapBatch(*(pmesh.local_rows(t, cfg.num_stage) for t in mocap))
+    t0 = time.perf_counter()
+    torch.save(_parity_step(torch, smpl, mean_theta, cfg, batch, mocap, "cuda", torch.float64),
+               os.path.join(DP_DIR, f"f64_rank{rank}.pt"))
+    f64_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    # (b2) the Trainer at full width: batch 4 per rank (8 global), 3 steps
+    n, p = 8, 16384
+    launches = {"LAUNCHES": 0, "VALUE_GRAD_LAUNCHES": 0}
+    k1, k2 = cc.LAUNCHES, cc.VALUE_GRAD_LAUNCHES
+    tcfg = Config(batch_size=n // 2, img_size=img, encoder_dtype="bfloat16", use_mesh_repro_loss=True,
+                  mr_metric_stages="all", max_silhouette_points=p, use_gradient_penalty=True,
+                  num_examples_override=3 * n, epoch=1, checkpoint_every_epochs=1, validation_step_size=3,
+                  log_img_step=0, model_dir=None, checkpoint_dir=os.path.join(DP_DIR, "ckpt"))
+    pairs = _train_batches(torch, smpl, n, p, img, 3, seed=6, device="cuda")
+    images = [(GenBatch(*(pmesh.local_rows(t) for t in b)), n // 2) for b, _ in pairs]
+    val = [(GenBatch(*(pmesh.local_rows(t) for t in b)), n // 2)
+           for b in _eval_batches(torch, torch.Generator().manual_seed(8), n, p, img, 2)]
+    mocap = NpzMocapPipeline(tcfg, smpl, [MOCAP_SHARD], device_forward=True, seed=3, device="cuda")
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        trainer = Trainer(tcfg, dataset=images, mocap_dataset=mocap, val_dataset=val, smpl=smpl, device="cuda")
+        step_ms, inner = [], trainer.train_step
+
+        def timed(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m = inner(*a)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t))
+            return m
+
+        trainer.train_step = timed
+        history = trainer.train()
+        trained = _state_tensors(trainer.state)
+        fresh = Trainer(tcfg, dataset=[], val_dataset=val, smpl=smpl, device="cuda")
+        restored_step = fresh.restore()
+        results = fresh.validate_checkpoint(restore=False)
+    launches["LAUNCHES"] += cc.LAUNCHES - k1
+    launches["VALUE_GRAD_LAUNCHES"] += cc.VALUE_GRAD_LAUNCHES - k2
+    restored = _state_tensors(fresh.state)
+    restore_equal = all(torch.equal(restored[k], v) for k, v in trained.items())
+    if not restore_equal or restored_step != 3:
+        raise AssertionError(f"rank {rank}: restore at step {restored_step}, bit-equal {restore_equal}")
+    for key in ("kpr", "mr", "critic"):
+        if len(history[key]) != 3 or not np.isfinite(history[key]).all():
+            raise AssertionError(f"rank {rank}: {key} history {history[key]}")
+    torch.distributed.destroy_process_group()
+    return {
+        "rank": rank, "f64_s": f64_s, "step_ms": step_ms, "digest": _tensor_digest(torch, trained),
+        "history": history, "validate": {k: results[k] for k in ("mean_kpr_loss", "mean_mr_loss", "pck@0.5")},
+        "ckpt": sorted(os.listdir(tcfg.checkpoint_dir)), "launches": launches,
+    }
+
+
+def _dp_child(part: str) -> int:
+    """Entry of a ``[data-parallel]`` child: prints its result as one JSON line."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from human_pose_estimation_tpu_torch import pin_f32_numerics
+    from human_pose_estimation_tpu_torch.ops import cuda_chamfer as cc
+
+    pin_f32_numerics()
+    cc.build_all()  # loads the parent's build from build/kernels
+    result = (_dp_child_a if part == "a" else _dp_child_b)(torch, cc)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+def phase_data_parallel(torch, cc, card, smpl, mean_theta):
+    """``[data-parallel]``: (a) one rank on NCCL at ``[train]``'s full width,
+    the data-parallel step against the plain one; (b) two ranks sharing the
+    card over gloo: the f64 step on 4 rows each against one process on the
+    8 (checked here, 1e-9), and a 2-rank Trainer with checkpoint and
+    restore. Returns the children's K1 / K2 launches on their main paths
+    (the data-parallel steps, the Trainer and its validation)."""
+    import shutil
+
+    from human_pose_estimation_tpu_torch.config import Config
+
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    os.makedirs(DP_DIR)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (a,) = _run_children("a", 1)
+    a_s = time.perf_counter() - t0
+    dp, pl = a["profiled"]["dp"], a["profiled"]["plain"]
+    collectives = ", ".join(f"{k} {c:.0f} {ms:.2f}" for k, (c, ms) in sorted(dp["collectives"].items()))
+    # the device rows the data-parallel step grew most (where a world-1 NCCL group spends its device time)
+    grown = sorted(
+        ((dp["rows"][k][1] - pl["rows"].get(k, (0, 0.0))[1], dp["rows"][k][0] - pl["rows"].get(k, (0, 0.0))[0], k)
+         for k in dp["rows"]), reverse=True)[:3]
+    grown = ", ".join(f"{k[:40]} +{ms:.3f} ms in {n:+.0f} launches" for ms, n, k in grown)
+    print(
+        f"[data-parallel] (a) 1 rank, NCCL, make_train_step ResNet-50 224px bf16 batch 8 P=16384 mr on 3 stages, "
+        f"GP on, mocap 24: new state vs the plain step (same inputs, same seed) "
+        f"{'bit-equal' if a['bit_equal'] else 'state max rel %.2e, metrics %.2e (limit 1e-6)' % (a['state_rel'], a['metric_rel'])} "
+        f"| alternated, median of {a['rounds']}: plain {a['plain_ms']:.2f} ms/step, data-parallel "
+        f"{a['dp_ms']:.2f} ms/step | profiler, per step: NCCL kernels {dp['nccl_ms']:.3f} ms of device time in "
+        f"{dp['nccl_launches']:.0f} launches; device time {dp['device_ms']:.3f} ms against plain "
+        f"{pl['device_ms']:.3f} ms, grown most: {grown}; collectives (calls, host ms) {collectives} | host syncs per step: plain "
+        f"{a['syncs']['plain']}, data-parallel {a['syncs']['dp']} "
+        f"| Predictor(data_parallel=True) batch 64 on {a['replicas']} replica(s) vs plain: max abs "
+        f"{a['pred_err']:.2e} (atol 1e-5) | K1/K2 launches {a['launches']} | child {a_s:.1f} s | {card}",
+        flush=True,
+    )
+
+    t0 = time.perf_counter()
+    b = _run_children("b", 2)
+    b_s = time.perf_counter() - t0
+    n, img, p = 8, 224, 2048
+    (batch, mocap), = _train_batches(torch, smpl, n, p, img, 1, seed=3, device="cpu")
+    cfg = Config(batch_size=n, img_size=img, encoder_dtype="float32", use_mesh_repro_loss=True)
+    one = _parity_step(torch, smpl, mean_theta, cfg, batch, mocap, "cuda", torch.float64)
+    worst = {}
+    for r in range(2):
+        got = torch.load(os.path.join(DP_DIR, f"f64_rank{r}.pt"))
+        m_rel = {f: float((got[0][f] - v).abs().max()) / max(float(v.abs().max()), 1e-30) for f, v in one[0].items()}
+        _, g_rel, leaf = _worst(got, one)
+        s_rel, s_leaf = _max_rel(torch, got[2], one[2])
+        worst[r] = (max(v for f, v in m_rel.items() if f != "mr_losses"), m_rel["mr_losses"], g_rel, leaf, s_rel, s_leaf)
+        if not (worst[r][0] <= 1e-9 and worst[r][1] <= 1e-6 and g_rel <= 1e-9 and s_rel <= 1e-9):
+            raise AssertionError(f"[data-parallel] (b) rank {r} f64 step vs one process: {worst[r]}")
+    if b[0]["digest"] != b[1]["digest"] or b[0]["history"] != b[1]["history"] or b[0]["validate"] != b[1]["validate"]:
+        raise AssertionError("[data-parallel] (b) the ranks' trained states, histories or sweeps differ")
+    if b[0]["ckpt"] != ["3"]:
+        raise AssertionError(f"[data-parallel] (b) checkpoint steps {b[0]['ckpt']}, expected ['3']")
+    w = max(worst.values())
+    print(
+        f"[data-parallel] (b) 2 ranks on one card over gloo (NCCL refuses two ranks on one device): f64 "
+        f"make_train_step ResNet-50 224px P=2048, 4 rows per rank (K2) vs one process on 8: StepMetrics max rel "
+        f"{w[0]:.2e} (mr_losses {w[1]:.2e}: the chamfer sums in f32), gradients {w[2]:.2e} ({w[3]}), BN statistics "
+        f"{w[4]:.2e}; limit 1e-9 (mr 1e-6) | f64 step {b[0]['f64_s']:.1f} s on rank 0 | Trainer ResNet-50 224px "
+        f"bf16 batch 4 per rank, P=16384, 3 steps: ms per step rank 0 "
+        f"{', '.join(f'{t:.1f}' for t in b[0]['step_ms'])}, rank 1 {', '.join(f'{t:.1f}' for t in b[1]['step_ms'])}; "
+        f"states equal across ranks (sha256), checkpoint by rank 0 at step 3, restored bit-equal on both; "
+        f"validate_checkpoint {b[0]['validate']} on both | K1/K2 launches per rank {b[0]['launches']} | "
+        f"children {b_s:.1f} s | {card}",
+        flush=True,
+    )
+    return {name: a["launches"][name] + sum(r["launches"][name] for r in b) for name in a["launches"]}
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--dp-child"]:
+        return _dp_child(sys.argv[2])
     try:
         import torch
     except ImportError:
@@ -2520,6 +2891,12 @@ def main() -> int:
     phase_batching(torch, card, pred, images)
     phase_http(torch, card, pred, images)
     phase_export(torch, card, pred, int8, images)
+    del pred, int8
+
+    # data parallelism in child processes: their main paths' K1 / K2 launches are added; the
+    # parent's one-process f64 reference step is a comparison and stays out of the counts
+    for name, n in phase_data_parallel(torch, cc, card, smpl, mean_theta).items():
+        counters[name]["launches"] += n
 
     phase_train_parity(torch, card, smpl, mean_theta)
 

@@ -27,7 +27,7 @@ class Config:
     validation sweep, ``models/quantize.py``), remat_encoder, mr_scale_mode,
     mr_metric_stages, cam_scale_hinge / margin, gp_mode,
     max_silhouette_points, the augmentation (trans_max, scale_min,
-    scale_max), seed, input_pipeline ('grain' is not ported), data_dir,
+    scale_max), seed, input_pipeline, data_dir,
     datasets, val_datasets, mocap_datasets, smpl_model_path, and the
     loop's fields (``train/trainer.py``): epoch, the logging and
     validation cadences, checkpoint_dir / checkpoint_every_epochs /
@@ -35,7 +35,8 @@ class Config:
     steps_per_call (which step the trainer builds), num_examples_override,
     logs / model_dir and the profiler window (profile_dir,
     profile_start_step, profile_end_step: a ``torch.profiler`` trace).
-    mesh_axis (data parallelism) is not ported."""
+    mesh_axis is not read: data parallelism is over processes
+    (``parallel/mesh.py``), with ``batch_size`` the per-process batch."""
 
     # --- assets
     smpl_model_path: str = "models/model.pkl"

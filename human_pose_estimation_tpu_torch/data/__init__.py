@@ -12,10 +12,14 @@ device:
   (``data/npz_dataset.NpzImagePipeline``);
 * ``native`` — the C++ multithreaded decoder over the same npz shards,
   with a prefetch thread (``data/native_pipeline.NativeImagePipeline``);
-  its mocap stream is the npz one.
+* ``grain`` — ``grain.MapDataset`` over the npz shards: a seeded
+  per-epoch shuffle, decoding in worker processes, a resumable position
+  (``data/grain_pipeline.GrainImagePipeline``).
 
-``grain`` raises until it is ported (ROADMAP.md section 1, item 4) rather
-than reading the npz shards instead.
+The mocap stream of ``npz``, ``native`` and ``grain`` is the npz one.
+Under data parallelism (``shard_by_host`` with more than one rank) only
+``tfrecord`` and ``grain`` shard the examples over the ranks; ``npz`` and
+``native`` would give every rank the whole dataset, and are refused.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from glob import glob
 from typing import List, Optional, Sequence
 
 from ..config import Config
+from ..parallel import mesh as pmesh
 
 __all__ = ["make_image_pipeline", "make_mocap_pipeline", "npz_mocap_files", "npz_shard_files"]
 
@@ -51,27 +56,36 @@ def npz_mocap_files(data_dir: str, mocap_datasets: Sequence[str]) -> List[str]:
     return files
 
 
-def _refuse_unported(cfg: Config) -> None:
-    if cfg.input_pipeline == "grain":
-        raise NotImplementedError(
-            "input_pipeline='grain' is not ported yet (ROADMAP.md section 1, item 4); "
-            "use input_pipeline='tfrecord', 'npz' or 'native'"
-        )
-
-
 def make_image_pipeline(cfg: Config, datasets: Optional[Sequence[str]] = None, mode: str = "train", **kw):
     """The image pipeline of ``cfg.input_pipeline`` over ``datasets``
     (default ``cfg.datasets``) under ``cfg.data_dir``: ``tfrecord``
     (``data/pipeline.ImagePipeline``), ``npz``
-    (``data/npz_dataset.NpzImagePipeline``) or ``native``
-    (``data/native_pipeline.NativeImagePipeline``)."""
-    _refuse_unported(cfg)
+    (``data/npz_dataset.NpzImagePipeline``), ``native``
+    (``data/native_pipeline.NativeImagePipeline``) or ``grain``
+    (``data/grain_pipeline.GrainImagePipeline``). ``shard_by_host=True``
+    shards the examples over the ranks of a process group; ``npz`` and
+    ``native`` cannot, and raise ValueError under more than one rank."""
     names = list(datasets if datasets is not None else cfg.datasets)
     if cfg.input_pipeline == "tfrecord":
         from .pipeline import ImagePipeline
 
         return ImagePipeline(cfg, datasets=names, mode=mode, **kw)
     files = npz_shard_files(cfg.data_dir, names)
+    shard_by_host = bool(kw.pop("shard_by_host", False))
+    if cfg.input_pipeline == "grain":
+        from .grain_pipeline import GrainImagePipeline
+
+        # grain always augments on the device, as the JAX one does
+        kw.pop("device_preprocess", None)
+        return GrainImagePipeline(cfg, files, mode=mode, shard_by_host=shard_by_host, **kw)
+    # npz and native have no per-rank example sharding: every rank would
+    # read the WHOLE dataset (duplicated epochs), so refuse
+    if shard_by_host and pmesh.world_size() > 1:
+        raise ValueError(
+            f"input_pipeline={cfg.input_pipeline!r} cannot shard the input stream across processes; use "
+            "input_pipeline='grain' (per-rank example sharding and a resumable iterator) or 'tfrecord' "
+            "for data-parallel training"
+        )
     if cfg.input_pipeline == "npz":
         from .npz_dataset import NpzImagePipeline
 
@@ -90,8 +104,9 @@ def make_image_pipeline(cfg: Config, datasets: Optional[Sequence[str]] = None, m
 def make_mocap_pipeline(cfg: Config, smpl, **kw):
     """The mocap prior stream of ``cfg.input_pipeline`` over
     ``cfg.mocap_datasets`` under ``cfg.data_dir``: tf.data for
-    ``tfrecord``, the npz shards for ``npz`` and ``native``."""
-    _refuse_unported(cfg)
+    ``tfrecord``, the npz shards for ``npz``, ``native`` and ``grain``. The
+    stream is not sharded over the ranks: every rank draws the same
+    samples, as every host of the JAX package shuffles with ``cfg.seed``."""
     if cfg.input_pipeline == "tfrecord":
         from .pipeline import MocapPipeline
 

@@ -33,6 +33,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..parallel import mesh as pmesh
+
 __all__ = ["FLIP_SWAP_19", "AugmentConfig", "augment_batch", "extract_silhouette"]
 
 # L/R joint swap for horizontal flips, cocoplus 19-keypoint order
@@ -93,8 +95,11 @@ def _resample(img: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor) -> torch.Te
     return torch.einsum("npw,nowc->nopc", wx, tmp).contiguous()
 
 
-def _draws(n: int, cfg: AugmentConfig, generator: Optional[torch.Generator], dev: torch.device):
-    """(trans (N, 2) int32, scales (N,) f32, flips (N,) bool)."""
+def _draws(n: int, cfg: AugmentConfig, generator: Optional[torch.Generator], dev: torch.device,
+           global_draws: bool = False):
+    """(trans (N, 2) int32, scales (N,) f32, flips (N,) bool). With
+    ``global_draws`` under a process group, each draw is made for the
+    global batch and this rank keeps its rows (``parallel.mesh.draw_rows``)."""
     if not cfg.augment:
         return (
             torch.zeros((n, 2), dtype=torch.int32, device=dev),
@@ -103,15 +108,19 @@ def _draws(n: int, cfg: AugmentConfig, generator: Optional[torch.Generator], dev
         )
     if generator is None:
         raise ValueError("augment_batch draws from a torch.Generator; pass one (or overrides)")
+    rows = pmesh.draw_rows if global_draws else (lambda draw, shape: draw(shape))
     if cfg.trans_max > 0:
-        trans = torch.randint(
-            -cfg.trans_max, cfg.trans_max, (n, 2), generator=generator, device=dev, dtype=torch.int32
+        trans = rows(
+            lambda shape: torch.randint(
+                -cfg.trans_max, cfg.trans_max, shape, generator=generator, device=dev, dtype=torch.int32
+            ),
+            (n, 2),
         )
     else:
         trans = torch.zeros((n, 2), dtype=torch.int32, device=dev)
-    u = torch.rand(n, generator=generator, device=dev)
+    u = rows(lambda shape: torch.rand(shape, generator=generator, device=dev), (n,))
     scales = cfg.scale_min + (cfg.scale_max - cfg.scale_min) * u
-    flips = torch.rand(n, generator=generator, device=dev) < 0.5
+    flips = rows(lambda shape: torch.rand(shape, generator=generator, device=dev), (n,)) < 0.5
     return trans, scales, flips
 
 
@@ -124,6 +133,7 @@ def augment_batch(
     generator: Optional[torch.Generator],
     cfg: AugmentConfig,
     overrides: Optional[Tuple] = None,
+    global_draws: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched preprocess on the images' device: (crop in [-1, 1]
     (N, S, S, 3), seg crop (N, S, S, 1), labels (N, 19, 3) with the
@@ -132,7 +142,9 @@ def augment_batch(
     ``overrides=(trans (N, 2) int, scales (N,), flips (N,) bool)`` pins the
     draws; otherwise ``cfg.augment`` draws them from ``generator`` (a
     ``torch.Generator`` on the images' device) and ``augment=False`` is the
-    centre crop at scale 1."""
+    centre crop at scale 1. ``global_draws``: under a process group, draw
+    for the global batch and keep this rank's rows (the fused training
+    step); a pipeline's own preprocessing draws per rank."""
     n, canvas_h, canvas_w, _ = images.shape
     dev = images.device
     out = cfg.out_size
@@ -144,7 +156,7 @@ def augment_batch(
         trans, scales, flips = (torch.as_tensor(t, device=dev) for t in overrides)
         trans, scales, flips = trans.to(torch.int32), scales.float(), flips.bool()
     else:
-        trans, scales, flips = _draws(n, cfg, generator, dev)
+        trans, scales, flips = _draws(n, cfg, generator, dev, global_draws)
 
     hw = hw.to(device=dev, dtype=torch.int32)
     center_j = centers.to(device=dev, dtype=torch.int32) + trans  # jittered centre

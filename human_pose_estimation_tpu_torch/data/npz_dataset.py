@@ -29,6 +29,8 @@ from .pipeline import DevicePreprocessor, person_window_half, to_device
 __all__ = [
     "NpzImagePipeline",
     "NpzMocapPipeline",
+    "convert_images_to_npz_shard",
+    "convert_mocap_tfrecords_to_npz",
     "write_mocap_npz_shard",
     "write_npz_shard",
 ]
@@ -55,6 +57,33 @@ def write_npz_shard(
         center=np.asarray(centers, np.int32),
     )
     return n
+
+
+def convert_images_to_npz_shard(out_path: str, pairs, joints: np.ndarray) -> int:
+    """Build an image shard from (image_path, seg_path) pairs and a (3, 14,
+    N) joints array (the inputs of ``tfrecords.create_image_tfrecord``):
+    the image files' bytes as they are, the segmentations re-encoded as
+    PNG, examples without a visible joint skipped. Needs OpenCV."""
+    import cv2
+
+    from .tfrecords import center_from_visible
+
+    jpegs, pngs, labels, centers = [], [], [], []
+    for idx, (img_path, seg_path) in enumerate(pairs):
+        label = np.asarray(joints[:, :, idx], np.float32)
+        if not (label[2] > 0).any():
+            continue
+        with open(img_path, "rb") as f:
+            img_bytes = f.read()
+        seg = cv2.imread(seg_path, cv2.IMREAD_GRAYSCALE)
+        ok, png = cv2.imencode(".png", seg)
+        if not ok:
+            raise ValueError(f"cannot encode {seg_path!r} as PNG")
+        jpegs.append(img_bytes)
+        pngs.append(png.tobytes())
+        labels.append(label)
+        centers.append(center_from_visible(label))
+    return write_npz_shard(out_path, jpegs, pngs, np.stack(labels), np.stack(centers))
 
 
 def _fit_to_canvas_np(img, seg, label, center, canvas: int, window_half=None):
@@ -182,6 +211,20 @@ def write_mocap_npz_shard(out_path: str, pose: np.ndarray, shape: np.ndarray) ->
         raise ValueError(f"shape must be ({pose.shape[0]}, 10), got {shape.shape}")
     np.savez(out_path, pose=pose, shape=shape)
     return pose.shape[0]
+
+
+def convert_mocap_tfrecords_to_npz(tfrecord_files, out_path: str) -> int:
+    """Migrate the reference's mocap tfrecords into one npz shard (once;
+    reading the records needs TensorFlow)."""
+    from .tfrecords import _tf, parse_mocap_example_tf
+
+    tf = _tf()
+    poses, shapes = [], []
+    for raw in tf.data.TFRecordDataset(list(tfrecord_files)):
+        p, s = parse_mocap_example_tf(raw)
+        poses.append(p.numpy())
+        shapes.append(s.numpy())
+    return write_mocap_npz_shard(out_path, np.stack(poses), np.stack(shapes))
 
 
 class NpzMocapPipeline:

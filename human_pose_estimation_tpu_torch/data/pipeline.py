@@ -23,6 +23,7 @@ import torch
 
 from .. import resolve_device
 from ..config import Config
+from ..parallel import mesh as pmesh
 from ..train.step import GenBatch, HostBatch, mocap_batch
 from . import tfrecords
 from .augment import AugmentConfig, augment_batch, extract_silhouette
@@ -70,8 +71,12 @@ class DevicePreprocessor:
     """``augment_batch`` then ``extract_silhouette`` on the device, as one
     call: ``prep(host_batch, generator) -> GenBatch``."""
 
-    def __init__(self, cfg: Config, augment: bool = True, device=None):
-        """``device``: ``cuda`` unless the caller asks for the CPU."""
+    def __init__(self, cfg: Config, augment: bool = True, device=None, global_draws: bool = False):
+        """``device``: ``cuda`` unless the caller asks for the CPU.
+        ``global_draws``: under a process group the augmentation draws for
+        the global batch and keeps this rank's rows (the fused training
+        step, ``train/step.py``); a pipeline's preprocessor draws per rank
+        from its own generator, as in the JAX package."""
         self.aug_cfg = AugmentConfig(
             out_size=cfg.img_size,
             trans_max=cfg.trans_max,
@@ -81,6 +86,7 @@ class DevicePreprocessor:
         )
         self.max_sil = cfg.max_silhouette_points
         self.device = resolve_device(device)
+        self.global_draws = global_draws
 
     def __call__(self, host_batch: Mapping, generator: Optional[torch.Generator] = None) -> GenBatch:
         """host_batch: {"image" (N, Hc, Wc, 3) uint8, "seg" (N, Hc, Wc, 1)
@@ -90,7 +96,8 @@ class DevicePreprocessor:
         with torch.profiler.record_function("DevicePreprocessor"):
             b = {k: to_device(host_batch[k], self.device) for k in ("image", "seg", "hw", "center", "label")}
             crops, crop_segs, label = augment_batch(
-                b["image"], b["seg"], b["hw"], b["center"], b["label"], generator, self.aug_cfg
+                b["image"], b["seg"], b["hw"], b["center"], b["label"], generator, self.aug_cfg,
+                global_draws=self.global_draws,
             )
             pts, mask = extract_silhouette(crop_segs, self.max_sil)
         return GenBatch(images=crops, seg_points=pts, seg_mask=mask, kp2d=label)
@@ -173,6 +180,7 @@ class ImagePipeline:
         seed: Optional[int] = None,
         device_preprocess: bool = True,
         cache: bool = False,
+        shard_by_host: bool = False,
         device=None,
     ):
         """``device``: where the augmentation runs, ``cuda`` unless the
@@ -185,7 +193,13 @@ class ImagePipeline:
         ``cache`` decodes and fits every
         example once into memory and shuffles / repeats from there (a small
         corpus cycled many times); only the shuffled order differs from the
-        uncached stream."""
+        uncached stream.
+
+        ``shard_by_host``: under a process group of more than one rank,
+        each rank reads every R-th example from its rank on
+        (``ds.shard``), and ``batch_size`` is the per-rank batch. The shard
+        is taken over examples, never over files: files of different sizes
+        would give the ranks different example counts."""
         tf = _tf()
         self.cfg = cfg
         self.canvas = canvas
@@ -205,6 +219,8 @@ class ImagePipeline:
         self.window_half = person_window_half(cfg, augment)
 
         ds = tf.data.TFRecordDataset(self.files)
+        if shard_by_host and pmesh.world_size() > 1:
+            ds = ds.shard(pmesh.world_size(), pmesh.rank())
         half = self.window_half
 
         def parse(s):

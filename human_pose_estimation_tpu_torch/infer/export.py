@@ -35,28 +35,16 @@ from .. import resolve_device
 OUTPUT_KEYS = ("generated_verts", "generated_cams", "generated_joints", "theta", "kp2d")
 
 
-def _tree_to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
-    return None if tree is None else tree.to(device)
-
-
 class _ServingGraph(torch.nn.Module):
     """The predictor's serving graph with everything it reads on ``device``."""
 
     def __init__(self, predictor, device: torch.device):
         super().__init__()
-        import copy
+        from .predictor import hmr_on, serving_graph, tree_to
 
-        from .predictor import serving_graph
-
-        hmr = predictor.hmr
-        if hmr.device != device:
-            hmr = copy.deepcopy(hmr).to(device)
-            hmr.smpl, hmr.device = predictor.hmr.smpl.to(device), device
-        self.hmr = hmr
+        self.hmr = hmr_on(predictor.hmr, device)
         self.mean_theta = predictor.mean_theta.to(device)
-        self.qparams = _tree_to(predictor.encoder_qparams, device)
+        self.qparams = tree_to(predictor.encoder_qparams, device)
         self.outputs = predictor.outputs
         self._graph = serving_graph
 

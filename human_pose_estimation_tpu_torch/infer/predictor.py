@@ -12,10 +12,15 @@ package's checkpoints or the JAX package's).
 (``models/quantize.py``): the weights are folded and quantized once here;
 the activation scales are calibrated on ``calibration_images`` when given,
 else on the first real batch served (its unpadded rows), never on a warm-up
-call (``calibrate=False``). Data-parallel serving is not ported yet.
+call (``calibrate=False``).
+
+``data_parallel`` serves over several local devices, one replica of the
+model on each: the padded batch is split evenly over them, in order, and
+the results are concatenated in the same order.
 """
 from __future__ import annotations
 
+import copy
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -51,6 +56,31 @@ def serving_graph(hmr: HMR, images: torch.Tensor, mean_theta: torch.Tensor, qpar
     return out
 
 
+def tree_to(tree, device):
+    """A tensor, or a dict tree of them (int8 parameters), on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return None if tree is None else tree.to(device)
+
+
+def _canonical(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def hmr_on(hmr: HMR, device) -> HMR:
+    """``hmr`` when it lives on ``device``, else a copy moved there (weights,
+    buffers and body model)."""
+    device = torch.device(device)
+    if _canonical(hmr.device) == _canonical(device):
+        return hmr
+    replica = copy.deepcopy(hmr).to(device)
+    replica.smpl, replica.device = hmr.smpl.to(device), device
+    return replica
+
+
 class Predictor:
     """Serves (verts, cams, joints, theta, kp2d) for image batches."""
 
@@ -72,14 +102,15 @@ class Predictor:
         (1, 85) initial estimate. encoder_int8 (or ``config.encoder_int8``):
         serve the int8 encoder, calibrated on ``calibration_images`` ((N, H,
         W, 3), uint8 or float in [-1, 1]) when given, else lazily on the first
-        real batch. Without either, both are restored from
+        real batch. data_parallel: one replica per device of
+        ``parallel.mesh.make_mesh`` (every CUDA device, trimmed to the
+        largest count that divides the batch; the CPU is one device), each
+        serving its equal slice of the padded batch. Without variables and mean_theta, both are restored from
         ``config.checkpoint_dir`` (fresh from ``config.seed`` when it holds
         no checkpoint). The encoder is the one ``config`` describes
         (``encoder_depth``, or ``encoder_stage_sizes`` when set); weights of
         another shape are refused. outputs: restrict the returned keys.
         device: ``cuda`` unless the caller asks for the CPU."""
-        if data_parallel:
-            raise NotImplementedError("data-parallel serving is not ported yet")
         self.config = config
         self.batch_size = batch_size or config.batch_size
         self.outputs = tuple(outputs) if outputs else None
@@ -123,10 +154,22 @@ class Predictor:
                 calib = torch.as_tensor(np.asarray(calibration_images)).to(self.device)
                 calib = normalize(calib if calib.dtype == torch.uint8 else calib.float())
             self.encoder_qparams = self.hmr.quantize_encoder(calibration_images=calib)
+        # (hmr, mean_theta, device) per replica, in batch order
+        self.replicas = [(self.hmr, self.mean_theta, self.device)]
+        if data_parallel:
+            from ..parallel.mesh import make_mesh
+
+            local = None if self.device.type == "cuda" else [self.device]
+            self.replicas = [
+                (hmr_on(self.hmr, d), self.mean_theta.to(d), d) for d in make_mesh(local, self.batch_size)
+            ]
 
     @torch.inference_mode()
-    def _predict_impl(self, images: torch.Tensor, qparams=None) -> Dict[str, torch.Tensor]:
-        return serving_graph(self.hmr, images, self.mean_theta, qparams, self.outputs)
+    def _predict_impl(self, images: torch.Tensor, qparams=None, replica=0) -> Dict[str, torch.Tensor]:
+        hmr, mean_theta, device = self.replicas[replica]
+        if replica:
+            qparams = tree_to(qparams, device)
+        return serving_graph(hmr, images, mean_theta, qparams, self.outputs)
 
     def predict_async(self, images, calibrate: bool = True):
         """Enqueue ONE padded batch (N <= batch_size) on the device without
@@ -152,23 +195,30 @@ class Predictor:
         host = torch.from_numpy(np.ascontiguousarray(images))
         if self.device.type == "cuda":
             host = host.pin_memory()
-        device_images = host.to(self.device, non_blocking=True)
+        # one equal slice of the padded batch per replica, in order
+        parts = [
+            c.to(d, non_blocking=True) for c, (_, _, d) in zip(host.chunk(len(self.replicas)), self.replicas)
+        ]
         qp = self.encoder_qparams
         if qp is not None and qp["act"] is None:
             from ..models.quantize import calibrate_resnet
 
+            device_images = parts[0] if len(parts) == 1 else torch.cat([p.to(self.device) for p in parts])
             freeze = calibrate and n > 0
             rows = device_images[:n] if freeze else device_images
             act = calibrate_resnet(qp["weights"], normalize(rows), self.hmr.encoder.stage_sizes)
             qp = {"weights": qp["weights"], "act": act}
             if freeze:
                 self.encoder_qparams = qp
-        return self._predict_impl(device_images, qp), n
+        return [self._predict_impl(x, qp, i) for i, x in enumerate(parts)], n
 
     def predict_fetch(self, handle) -> Dict[str, np.ndarray]:
-        """Wait for a ``predict_async`` handle; numpy outputs for its N rows."""
-        out, n = handle
-        return {k: v[:n].cpu().numpy() for k, v in out.items()}
+        """Wait for a ``predict_async`` handle; numpy outputs for its N rows
+        (the replicas' results concatenated in batch order)."""
+        outs, n = handle
+        if len(outs) == 1:
+            return {k: v[:n].cpu().numpy() for k, v in outs[0].items()}
+        return {k: torch.cat([o[k].cpu() for o in outs])[:n].numpy() for k in outs[0]}
 
     def predict(self, images, calibrate: bool = True) -> Dict[str, np.ndarray]:
         """Predict on a (N, H, W, 3) batch — float in [-1, 1], or uint8

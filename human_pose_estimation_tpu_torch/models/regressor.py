@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from .. import at_least_f32
+from ..parallel import mesh as pmesh
 
 THETA_DIM = 85  # [cam 3 | pose 72 | shape 10]
 FEATURE_DIM = 2048
@@ -49,7 +50,9 @@ class IEFRegressor(nn.Module):
         if generator is None:
             raise ValueError("train-mode dropout needs a torch.Generator")
         keep_prob = 1.0 - self.dropout_rate
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+        # drawn for the global batch under a process group, this rank's rows kept
+        draw = lambda shape: torch.rand(shape, generator=generator, device=x.device)  # noqa: E731
+        keep = pmesh.draw_rows(draw, x.shape) < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
     def forward(

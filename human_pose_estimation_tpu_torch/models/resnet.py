@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from .. import at_least_f32
+from ..parallel import mesh as pmesh
 
 BN_EPS = 1.001e-5
 BN_MOMENTUM = 0.01  # torch convention: Flax/Keras momentum 0.99
@@ -43,7 +44,11 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     variance: ``running = (1 - momentum) * running + momentum * batch``.
     ``nn.BatchNorm2d`` would update the running variance with the unbiased
     one, off by N*H*W / (N*H*W - 1). Eval mode is ``nn.BatchNorm2d``'s.
-    Parameter and buffer names are unchanged. With
+    Parameter and buffer names are unchanged. Under a process group the
+    moments are those of the global batch (``parallel/mesh.py``), so the
+    running buffers agree on every rank and with one process over all the
+    rows (``nn.SyncBatchNorm`` would update the running variance with the
+    unbiased estimate, the same trap). With
     ``update_running_stats`` False the train mode leaves the buffers alone
     (the recompute of a rematerialised encoder, ``models/hmr.py``).
     """
@@ -54,8 +59,18 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return super().forward(x)
         xf = at_least_f32(x)  # statistics in at least f32, as Flax
-        mean = xf.mean(dim=(0, 2, 3))
-        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        if pmesh.is_distributed():
+            # the moments of the global batch: the mean over the ranks of
+            # their per-channel E[x] and E[x^2] (equal counts), all-reduced
+            # differentiably
+            c = xf.shape[1]
+            local = torch.cat([xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))])
+            moments = pmesh.global_sum(local) / pmesh.world_size()
+            mean = moments[:c]
+            var = (moments[c:] - mean * mean).clamp_min(0.0)
+        else:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
         if self.update_running_stats:
             with torch.no_grad():
                 self.running_mean.mul_(1.0 - self.momentum).add_(mean.detach(), alpha=self.momentum)

@@ -8,6 +8,7 @@ from typing import Sequence
 
 import torch
 
+from ..parallel import mesh as pmesh
 from .cuda_chamfer import chamfer, chamfer_forward_reference
 
 __all__ = [
@@ -21,7 +22,8 @@ __all__ = [
 def keypoint_reprojection_loss(kp_gt: torch.Tensor, kp_pred: torch.Tensor) -> torch.Tensor:
     """Visibility-weighted L1 keypoint loss: the sum of visible |error|
     over 2 x (#visible keypoints) (``tf.losses.absolute_difference`` with
-    SUM_BY_NONZERO_WEIGHTS).
+    SUM_BY_NONZERO_WEIGHTS). Under a process group the count is the global
+    batch's, and the value this rank's share of the global loss.
 
     kp_gt (N, K, 3) [x, y, visibility], kp_pred (N, K, 2) -> scalar.
     """
@@ -31,6 +33,8 @@ def keypoint_reprojection_loss(kp_gt: torch.Tensor, kp_pred: torch.Tensor) -> to
     # poison the batch; padded eval batches can produce such predictions)
     err = torch.where(vis > 0, (kp_gt[..., :2] - kp_pred).abs() * vis, torch.zeros_like(kp_pred))
     num_present = torch.count_nonzero(vis) * 2
+    if pmesh.is_distributed():  # the global batch's count: this rank's share of the loss
+        num_present = pmesh.global_sum(num_present.to(err.dtype))
     denom = num_present.clamp_min(1).to(err.dtype)
     return err.sum() / denom
 
@@ -97,7 +101,8 @@ def mesh_reprojection_loss(
     scale_mode: str = "reference",
     impl: str = "auto",
 ) -> torch.Tensor:
-    """Silhouette mesh-reprojection loss summed over the batch (scalar).
+    """Silhouette mesh-reprojection loss summed over the batch (scalar;
+    under a process group, this rank's rows: its share of the global sum).
 
     ``scale_mode='reference'`` divides each image by 3 + V (the
     reference's silhouette_gt.shape[1] quirk); ``'count'`` by its true
@@ -134,18 +139,27 @@ def gradient_penalty(grads: Sequence[torch.Tensor], mode: str = "reference") -> 
     ``(1 - norm)^2``, summed over the inputs (the reference's formulation).
     ``mode='per_sample'``: the paper's per-sample norm over all inputs
     jointly, ``mean((1 - sqrt(sq + 1e-12))^2)``.
+
+    Under a process group the value is this rank's share of the global
+    batch's penalty (the shares add up to it). The reference mode's norm is
+    not linear in the rows: the mean gradient is all-reduced inside the
+    graph (the double backward runs through that all-reduce), every rank
+    computes the whole penalty, and its share is the penalty over the
+    world size.
     """
     if mode == "reference":
         total = torch.zeros((), dtype=grads[0].dtype, device=grads[0].device)
         for g in grads:
             mean_g = g.mean(dim=0)
+            if pmesh.is_distributed():  # the global batch's mean: equal counts per rank
+                mean_g = pmesh.global_sum(mean_g) / pmesh.world_size()
             total = total + (1.0 - torch.linalg.vector_norm(mean_g.reshape(-1))) ** 2
-        return total
+        return total / pmesh.world_size() if pmesh.is_distributed() else total
     if mode == "per_sample":
         n = grads[0].shape[0]
         sq = torch.zeros(n, dtype=grads[0].dtype, device=grads[0].device)
         for g in grads:
             sq = sq + (g.reshape(n, -1) ** 2).sum(dim=-1)
         norms = torch.sqrt(sq + 1e-12)
-        return ((1.0 - norms) ** 2).mean()
+        return pmesh.mean_share((1.0 - norms) ** 2)
     raise ValueError(f"unknown mode: {mode!r}")

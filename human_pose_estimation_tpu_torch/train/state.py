@@ -19,6 +19,7 @@ from torch.optim.lr_scheduler import LambdaLR
 from ..config import Config
 from ..models.critic import Critic
 from ..models.hmr import HMR
+from ..parallel import mesh as pmesh
 
 __all__ = [
     "ADAM_EPS",
@@ -179,7 +180,8 @@ def create_train_state(smpl, mean_theta, cfg: Config, device=None, seed: int = 0
     dtype and ``remat_encoder``) and the critic with the JAX package's
     initialisers, the mean theta as a trainable (1, 85) parameter, and the
     optimizers of ``make_optimizers``. Runs on ``cuda`` unless ``device``
-    says otherwise."""
+    says otherwise. Under a process group every rank then holds rank 0's
+    state (``parallel.mesh.replicate``)."""
     hmr = HMR(
         smpl,
         num_stage=cfg.num_stage,
@@ -203,5 +205,7 @@ def create_train_state(smpl, mean_theta, cfg: Config, device=None, seed: int = 0
         cfg.lr_schedule,
         cfg.lr_decay_steps,
     )
-    return TrainState(hmr, mean, critic, gen_opt, gen_sched, critic_opt, critic_sched)
+    state = TrainState(hmr, mean, critic, gen_opt, gen_sched, critic_opt, critic_sched)
+    pmesh.replicate(state)
+    return state
 

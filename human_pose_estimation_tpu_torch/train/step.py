@@ -10,6 +10,20 @@ mean theta) on the last stage's terms; then a WGAN-GP update of the critic
 on the detached fakes of all three stages against real mocap, with the
 penalty's double backward. The evaluation step is the same forward in
 eval mode, without updates.
+
+Under a process group (``parallel/mesh.py``) every step runs data-parallel:
+each rank holds B rows, and the step over R ranks equals the one-process
+step over the R x B rows up to the order of floating-point sums. The batch
+statistics are global (BatchNorm's moments, the keypoint loss's count, the
+batch means, the reference penalty's mean gradient), the random numbers
+of the batch (dropout, penalty uniforms, the fused step's augmentation)
+are drawn for the global batch and each rank keeps its rows, each
+optimizer's gradients are summed in one flat all-reduce
+(``parallel.mesh.all_reduce_grads`` says why the sum is exact), and the
+returned metrics and losses are the global batch's on every rank. The
+critic pairs fake row i with mocap row i of the same rank: a rank's mocap
+batch holds the rows of the global one that ``parallel.mesh.row_index``
+gives it (blocks of ``num_stage``).
 """
 from __future__ import annotations
 
@@ -25,6 +39,7 @@ from ..core.projection import reproject_to_pixels
 from ..core.smpl import smpl_forward
 from ..ops import kcs as K
 from ..ops import losses as L
+from ..parallel import mesh as pmesh
 from .state import TrainState
 
 
@@ -116,7 +131,7 @@ def _stage_losses(stages, batch: GenBatch, critic, c_matrix, cfg: Config):
             mr.append(zero)
         if not cfg.encoder_only:
             scores = critic(K.kcs(s.joints3d, c_matrix), s.joints3d[:, :14], s.shape, s.rotations)
-            gcl.append(cfg.critic_loss_weight * -scores.mean(dim=0).sum())
+            gcl.append(cfg.critic_loss_weight * -pmesh.mean_share(scores, 0).sum())
         else:
             gcl.append(zero)
     return torch.stack(kpr), torch.stack(mr), torch.stack(gcl)
@@ -130,6 +145,9 @@ def make_val_step(hmr, critic, cfg: Config, return_stages: bool = False):
 
     return_stages=True also returns the per-stage keypoints / verts / cams
     stacked on a leading stage axis (for per-stage visualization).
+
+    Under a process group the losses are the global batch's on every rank
+    (every rank must call the step); the predictions are this rank's rows.
     """
     c_matrix = torch.as_tensor(K.bone_incidence_matrix(), device=hmr.device)
 
@@ -139,7 +157,7 @@ def make_val_step(hmr, critic, cfg: Config, return_stages: bool = False):
         # no dropout (the JAX step passes train=False)
         with _mode(False, hmr, critic):
             stages = hmr(batch.images, mean_theta, smpl_stages="all", encoder_qparams=encoder_qparams)
-            kpr, mr, gcl = _stage_losses(stages, batch, critic, c_matrix, cfg)
+            kpr, mr, gcl = pmesh.global_sums(_stage_losses(stages, batch, critic, c_matrix, cfg))
         last = stages[-1]
         out = dict(
             kpr_losses=kpr,
@@ -163,7 +181,8 @@ def make_val_step(hmr, critic, cfg: Config, return_stages: bool = False):
 def _gp_uniforms(fake_joints, fake_shapes, fake_rs, generator: Optional[torch.Generator]):
     """The gradient penalty's interpolation coefficients: one uniform per
     ELEMENT of each input (the reference's quirk; the paper draws one per
-    sample), drawn from the step's generator."""
+    sample), drawn from the step's generator. The arguments have the
+    GLOBAL batch's shapes (the step keeps this rank's rows)."""
 
     def draw(t):
         return torch.rand(t.shape, generator=generator, device=t.device, dtype=t.dtype)
@@ -209,7 +228,7 @@ def make_train_step(cfg: Config, device=None):
             # gauge fix: keep the last stage's weak-perspective scale out of
             # the mirrored s < 0 gauge; zero whenever s >= margin
             s = stages[-1].cam[:, 0]
-            loss = loss + cfg.cam_scale_hinge * torch.relu(cfg.cam_scale_margin - s).square().mean()
+            loss = loss + cfg.cam_scale_hinge * pmesh.mean_share(torch.relu(cfg.cam_scale_margin - s).square())
         return loss, stages, (kpr, mr, gcl)
 
     def critic_loss(critic, fakes, real: MocapBatch, generator) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -218,10 +237,18 @@ def make_train_step(cfg: Config, device=None):
         real_out = critic(K.kcs(real_joints, c_matrix), real_joints, real.shapes, real.rotations)
         fake_out = critic(K.kcs(fake_joints, c_matrix), fake_joints, fake_shapes, fake_rs)
         # WGAN loss: the sum over the 3 heads of the batch-mean margin
-        wgan = (fake_out - real_out).mean(dim=0).sum()
+        wgan = pmesh.mean_share(fake_out - real_out, 0).sum()
         penalty = torch.zeros((), device=dev)
         if cfg.use_gradient_penalty:
-            alpha, beta, gamma = _gp_uniforms(fake_joints, fake_shapes, fake_rs, generator)
+            # drawn for the global batch's fakes (empty stand-ins of its
+            # shapes under a process group), this rank's rows kept
+            shaped = [
+                t.new_empty((t.shape[0] * pmesh.world_size(), *t.shape[1:])) if pmesh.is_distributed() else t
+                for t in fakes
+            ]
+            alpha, beta, gamma = (
+                pmesh.local_rows(u, blocks=cfg.num_stage) for u in _gp_uniforms(*shaped, generator)
+            )
             i_joints = (fake_joints + alpha * (real_joints - fake_joints)).detach()
             i_shapes = (fake_shapes + beta * (real.shapes - fake_shapes)).detach()
             i_rs = (fake_rs + gamma * (real.rotations - fake_rs)).detach()
@@ -243,6 +270,7 @@ def make_train_step(cfg: Config, device=None):
         gen_loss, stages, (kpr, mr, gcl) = generator_loss(state, batch, generator)
         gen_params = state.gen_params()
         grads = torch.autograd.grad(gen_loss, gen_params, allow_unused=True)
+        grads = pmesh.all_reduce_grads(gen_params, grads)  # one flat all-reduce; identity on one process
         _apply(state.gen_opt, state.gen_sched, gen_params, grads)
 
         fake_joints = torch.cat([s.joints3d[:, :14] for s in stages]).detach()
@@ -250,10 +278,10 @@ def make_train_step(cfg: Config, device=None):
         fake_rs = torch.cat([s.rotations for s in stages]).detach()
         zero = torch.zeros((), device=dev)
         with torch.no_grad():
-            bone_pred = K.bone_lengths_sq(fake_joints, c_matrix).sum(dim=1).mean()
+            bone_pred = pmesh.mean_share(K.bone_lengths_sq(fake_joints, c_matrix).sum(dim=1))
             # a metric, not a critic input: computed whenever mocap is given
             bone_gt = (
-                K.bone_lengths_sq(mocap.joints[:, :14], c_matrix).sum(dim=1).mean()
+                pmesh.mean_share(K.bone_lengths_sq(mocap.joints[:, :14], c_matrix).sum(dim=1))
                 if mocap is not None
                 else zero
             )
@@ -264,20 +292,13 @@ def make_train_step(cfg: Config, device=None):
         else:
             c_loss, penalty = critic_loss(state.critic, (fake_joints, fake_shapes, fake_rs), mocap, generator)
             c_params = list(state.critic.parameters())
-            c_grads = torch.autograd.grad(c_loss, c_params, allow_unused=True)
+            c_grads = pmesh.all_reduce_grads(c_params, torch.autograd.grad(c_loss, c_params, allow_unused=True))
             _apply(state.critic_opt, state.critic_sched, c_params, c_grads)
 
         state.step += 1
-        return StepMetrics(
-            kpr_losses=kpr.detach(),
-            mr_losses=mr.detach(),
-            gen_critic_losses=gcl.detach(),
-            generator_loss=gen_loss.detach(),
-            critic_loss=c_loss.detach(),
-            critic_penalty=penalty.detach(),
-            bone_length_pred=bone_pred,
-            bone_length_gt=bone_gt,
-        )
+        # the ranks' shares summed into the global batch's values
+        fields = pmesh.global_sums((kpr, mr, gcl, gen_loss, c_loss, penalty, bone_pred, bone_gt))
+        return StepMetrics(*(t.detach() for t in fields))
 
     return train_step
 
@@ -300,7 +321,8 @@ def make_fused_train_step(cfg: Config, smpl, augment: bool = True, device=None):
     from ..data.pipeline import DevicePreprocessor, to_device
 
     dev = resolve_device(device)
-    prep = DevicePreprocessor(cfg, augment=augment, device=dev)
+    # the augmentation draws for the global batch under a process group
+    prep = DevicePreprocessor(cfg, augment=augment, device=dev, global_draws=True)
     body = smpl.to(dev)
     base = make_train_step(cfg, device=dev)
 

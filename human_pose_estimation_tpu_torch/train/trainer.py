@@ -1,6 +1,6 @@
 """Training orchestration: epochs, logging, validation, checkpoints
 (counterpart of ``human_pose_estimation_tpu/train/trainer.py``), on one
-device.
+device per process.
 
 Around the step functions of ``train/step.py``:
 
@@ -21,7 +21,18 @@ Around the step functions of ``train/step.py``:
 Every dispatch draws from a generator seeded from (``seed + 1``, the
 state's step) alone (``train.state.step_generator``), as the JAX loop folds
 its key on ``state.step``: a run resumed from a checkpoint draws what the
-straight run drew. Data parallelism (the JAX trainer's mesh) is not ported.
+straight run drew.
+
+Data parallelism (the JAX trainer's mesh): under a process group
+(``parallel/mesh.py``, launched with torchrun) every rank runs this loop
+on its own rows and the steps reduce over the ranks (``train/step.py``).
+``config.batch_size`` is the per-process batch, the global batch is R
+times it, and the epoch accounting counts global examples. The state
+starts replicated from rank 0 and stays equal on every rank; rank 0 alone
+writes summaries, images and checkpoints (behind a barrier), every rank
+restores, and ``validate_checkpoint`` reports the global batches' means.
+The mocap stream is not sharded: every rank draws the same samples, as
+every JAX host shuffles it with ``cfg.seed``.
 """
 from __future__ import annotations
 
@@ -40,6 +51,7 @@ from ..config import Config
 from ..core.smpl import load_model
 from ..data import tfrecords
 from ..ops.metrics import pck, pck_auc, pck_curve, per_joint_pck
+from ..parallel import mesh as pmesh
 from ..utils import checkpoint as ckpt
 from ..utils.mean_params import load_mean_theta
 from ..utils.summary import SummaryWriter
@@ -80,6 +92,7 @@ class Trainer:
     ):
         """``device``: ``cuda`` unless the caller asks for the CPU."""
         self.device = resolve_device(device)
+        self.chief = pmesh.rank() == 0  # the rank that writes summaries, images and checkpoints
         self.config = config
         self.dataset = dataset
         self.mocap_dataset = mocap_dataset
@@ -118,10 +131,11 @@ class Trainer:
                     "example count. Add it to data/tfrecords.NUM_EXAMPLES or set "
                     "--num_examples_override."
                 ) from e
-        self.num_itr_per_epoch = max(num_images / config.batch_size, 1)
+        # batch_size is per process: an epoch counts the global batches
+        self.num_itr_per_epoch = max(num_images / (config.batch_size * pmesh.world_size()), 1)
 
         self.writers: Dict[str, SummaryWriter] = {}
-        if not validation_only and config.model_dir:
+        if not validation_only and config.model_dir and self.chief:
             self.writers["train"] = SummaryWriter(os.path.join(config.model_dir, "training"))
             self.writers["val"] = SummaryWriter(os.path.join(config.model_dir, "validation"))
         self._renderer = None
@@ -165,7 +179,7 @@ class Trainer:
         with torch.no_grad():
             for k, v in own.items():  # state_dict tensors share the modules' storage
                 v.copy_(donor[k])
-        print(f"initialized encoder from {donor_dir} (step {step})")
+        self._print(f"initialized encoder from {donor_dir} (step {step})")
 
     # ------------------------------------------------------------------
     def restore(self) -> Optional[int]:
@@ -200,7 +214,7 @@ class Trainer:
         """Open the profiler after ``profile_start_step`` and write its
         Chrome trace at ``profile_end_step``."""
         cfg = self.config
-        if not cfg.profile_dir:
+        if not cfg.profile_dir or not self.chief:
             return
         if step == cfg.profile_start_step and self._profiler is None:
             from torch.profiler import ProfilerActivity, profile
@@ -232,7 +246,7 @@ class Trainer:
         start_step = 0
         if cfg.train_from_checkpoint:
             restored = self.restore()
-            print(f"restored checkpoint at step {restored}")
+            self._print(f"restored checkpoint at step {restored}")
             start_step = restored or 0
 
         history = {"kpr": [], "mr": [], "gen_critic": [], "critic": []}
@@ -352,13 +366,13 @@ class Trainer:
                     for key, label in (("kpr", "kpr"), ("mr", "mr"), ("gen_critic", "gc"), ("critic", "cn")):
                         if epoch_acc[key]:
                             msg += f" {label}={np.mean(epoch_acc[key]):.2f}"
-                    print(msg)
+                    self._print(msg)
                     epoch_acc = {key: [] for key in epoch_acc}
                     if epoch >= cfg.epoch:
                         stop = True
                         break
                     eta = datetime.datetime.now() + datetime.timedelta(seconds=(cfg.epoch - epoch) * dt)
-                    print(f"Starting epoch {epoch} ({dt / 60:.2f} min/epoch, approx done {eta})")
+                    self._print(f"Starting epoch {epoch} ({dt / 60:.2f} min/epoch, approx done {eta})")
                     t_epoch = time.time()
 
                 if max_steps is not None and step >= max_steps:
@@ -371,7 +385,13 @@ class Trainer:
             w.flush()
         return history
 
+    def _print(self, *args, **kw) -> None:
+        if self.chief:
+            print(*args, **kw)
+
     def _progress(self, epoch: int, itr: int) -> None:
+        if not self.chief:
+            return
         length = 30
         stride = max(int(self.num_itr_per_epoch / length), 1)
         if itr % stride == 0 or itr == 1:
@@ -395,12 +415,16 @@ class Trainer:
         """The reference's visualization grid: one row per IEF stage, each
         row [skeleton gt + pred | mesh over the image | mesh over the gt
         silhouette], rows stacked per example. An exception is printed,
-        never raised: visualization must not end a training run."""
+        never raised: visualization must not end a training run. Under a
+        process group every rank runs the forward (its losses reduce over
+        the ranks) and rank 0 renders its own rows."""
         try:
             from ..viz.renderer import draw_skeleton, draw_text
 
             if vout is None or "stage_verts" not in vout:
                 vout = self.viz_step(self.state.mean_theta, batch)
+            if not self.chief:
+                return
             n_show = min(3, batch.images.shape[0])
             images = _np(batch.images)
             kp_gt = _np(batch.kp2d)
@@ -457,7 +481,13 @@ class Trainer:
         curve at 0.1-0.5, its AUC and per-joint PCK, with optional best /
         worst batch renders. With ``config.encoder_int8`` the sweep runs
         the int8 serving encoder, quantized from the restored weights and
-        calibrated on the first validation batch."""
+        calibrated on the first validation batch (under a process group,
+        each rank's first batch, as each JAX host calibrates on its own).
+
+        Under a process group each rank sweeps its own validation stream
+        (the ranks must yield the same number of batches) and the results
+        are those of the global batches: the losses are reduced in the step
+        and the keypoints of every rank's valid rows are gathered for PCK."""
         if restore:
             self.restore()
         if self.val_dataset is None:
@@ -481,8 +511,9 @@ class Trainer:
             out = self.val_step(self.state.mean_theta, batch, qparams)
             k = out["pred_keypoints"].shape[1]
             kpr, mr = torch.stack([out["kpr_losses"][-1], out["mr_losses"][-1]]).tolist()
-            gt = batch.kp2d[:n_valid, :k].detach().cpu()
-            pred = out["pred_keypoints"][:n_valid].detach().cpu()
+            # every rank's valid rows: the global batch (one process: this batch's)
+            gt = pmesh.all_gather_rows(batch.kp2d[:n_valid, :k].detach()).cpu()
+            pred = pmesh.all_gather_rows(out["pred_keypoints"][:n_valid].detach()).cpu()
             kpr_losses.append(kpr)
             mr_losses.append(mr)
             pcks.append(float(pck(gt, pred)))
@@ -514,11 +545,11 @@ class Trainer:
             results.update({f"pck@{t}": float(v) for t, v in zip(thresholds, curve)})
             results["pck_auc@0.5"] = float(pck_auc(gt_all, pred_all))
             results["per_joint_pck@0.5"] = [round(float(v), 4) for v in per_joint_pck(gt_all, pred_all).tolist()]
-        print(f"average kpr_loss = {results['mean_kpr_loss']}")
-        print(f"average mr_loss = {results['mean_mr_loss']}")
-        print(f"PCK@0.5 = {results['pck@0.5']}")
+        self._print(f"average kpr_loss = {results['mean_kpr_loss']}")
+        self._print(f"average mr_loss = {results['mean_mr_loss']}")
+        self._print(f"PCK@0.5 = {results['pck@0.5']}")
         if gts:
-            print(
+            self._print(
                 "PCK curve "
                 + " ".join(f"@{t}={results[f'pck@{t}']:.3f}" for t in thresholds)
                 + f" | AUC@0.5={results['pck_auc@0.5']:.3f}"

@@ -15,6 +15,14 @@ Every reader also takes a step the JAX package wrote (Orbax:
 layout is told by what is on disk, and a step in neither layout raises.
 As with Orbax's checkpoint manager, saving a step at or below the latest
 one on disk writes nothing.
+
+Under a process group (``parallel/mesh.py``) every rank calls
+``save_train_state``; rank 0 alone writes (the states are replicated), the
+others wait at a barrier until the step is on disk, and every rank then
+restores from it. ``input_state.json`` holds rank 0's input position, as
+the JAX package keeps the one file its processes all write to the same
+path; a rank's grain position counts the batches it has read, equal on
+every rank.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel import mesh as pmesh
 from . import orbax_import
 
 __all__ = [
@@ -87,7 +96,17 @@ def save_train_state(
     layout) at ``step`` (default ``state.step``), with ``input_state`` (a
     JSON-serializable dict, the input streams' positions) beside it. Then
     keep only the ``max_to_keep`` newest steps. Returns whether a step was
-    written: a step at or below the latest on disk is not."""
+    written: a step at or below the latest on disk is not. Under a process
+    group rank 0 writes, every rank returns after the step is on disk, with
+    rank 0's answer."""
+    if pmesh.is_distributed():
+        written = _save(directory, state, step, input_state, max_to_keep) if pmesh.rank() == 0 else None
+        pmesh.barrier()
+        return pmesh.broadcast_object(written)
+    return _save(directory, state, step, input_state, max_to_keep)
+
+
+def _save(directory: str, state, step: Optional[int], input_state: Optional[dict], max_to_keep: int) -> bool:
     is_state = hasattr(state, "state_dict")
     if step is None:
         step = state.step if is_state else state["step"]

@@ -304,16 +304,23 @@ def test_pipeline_factories_take_npz_and_refuse_the_rest(tmp_path, mocap_shard, 
     assert tdata.npz_mocap_files(str(tmp_path), ["CMU", "jointLim"]) == [str(mocap_dir / os.path.basename(mocap_shard))]
     mocap = tdata.make_mocap_pipeline(mcfg, synthetic_model(num_verts=30), device="cpu")
     assert isinstance(mocap, tnpz.NpzMocapPipeline) and mocap.pose.shape == (20, 72)
-    # tfrecord and native are ported (tests/test_torch_native.py); grain
-    # is refused, never served by another pipeline
+    # tfrecord and native are ported (tests/test_torch_native.py), and grain
+    # (tests/test_torch_parallel.py): its images from GrainImagePipeline over
+    # the same shard, its mocap from the npz shards
     native = tdata.make_image_pipeline(cfg.replace(input_pipeline="native"), datasets=["lsp_5"], mode="val", device="cpu")
     assert type(native).__name__ == "NativeImagePipeline" and native.batch_size == 2
     assert isinstance(
         tdata.make_mocap_pipeline(mcfg.replace(input_pipeline="native"), synthetic_model(num_verts=30), device="cpu"),
         tnpz.NpzMocapPipeline,
     )
+    pytest.importorskip("grain")
+    from human_pose_estimation_tpu_torch.data.grain_pipeline import GrainImagePipeline
+
     other = cfg.replace(input_pipeline="grain")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tdata.make_image_pipeline(other, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tdata.make_mocap_pipeline(other, synthetic_model(num_verts=30), device="cpu")
+    grain_pipe = tdata.make_image_pipeline(other, datasets=["lsp_5"], mode="val", device="cpu")
+    assert isinstance(grain_pipe, GrainImagePipeline) and grain_pipe.batch_size == 2
+    assert [n for _, n in grain_pipe] == [n for _, n in pipe] == [2, 2, 1]
+    assert isinstance(
+        tdata.make_mocap_pipeline(mcfg.replace(input_pipeline="grain"), synthetic_model(num_verts=30), device="cpu"),
+        tnpz.NpzMocapPipeline,
+    )

@@ -527,5 +527,10 @@ def test_factories_build_tfrecord_and_native(image_record, shard, tmp_path):
     tnpz.write_mocap_npz_shard(str(mocap_dir / "neutrSMPL_CMU_0.npz"), np.zeros((6, 72)), np.zeros((6, 10)))
     npz_mocap = tdata.make_mocap_pipeline(ncfg.replace(mocap_datasets=["CMU"]), synthetic_model(num_verts=30), device="cpu")
     assert isinstance(npz_mocap, tnpz.NpzMocapPipeline) and npz_mocap.pose.shape == (6, 72)
-    with pytest.raises(NotImplementedError, match="grain"):
-        tdata.make_image_pipeline(ncfg.replace(input_pipeline="grain"), device="cpu")
+    pytest.importorskip("grain")
+    grain_pipe = tdata.make_image_pipeline(ncfg.replace(input_pipeline="grain"), mode="val", device="cpu")
+    assert type(grain_pipe).__name__ == "GrainImagePipeline"
+    b, nv = next(iter(grain_pipe))  # the same shard and order, decoded by OpenCV in grain's map
+    assert nv == 2
+    torch.testing.assert_close(b.images, rb.images, rtol=0, atol=ATOL)
+    assert torch.equal(b.seg_mask, rb.seg_mask)

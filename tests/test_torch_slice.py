@@ -37,6 +37,7 @@ from human_pose_estimation_tpu_torch.models import port_jax
 from human_pose_estimation_tpu_torch.models.critic import Critic
 from human_pose_estimation_tpu_torch.models.hmr import HMR
 from human_pose_estimation_tpu_torch.ops import metrics as tmetrics
+from human_pose_estimation_tpu_torch.parallel import mesh as pmesh
 from human_pose_estimation_tpu_torch.train.state import create_train_state as tcreate_train_state
 from human_pose_estimation_tpu_torch.train.step import GenBatch, make_train_step, make_val_step
 from human_pose_estimation_tpu_torch.utils.assets import synthetic_model
@@ -150,9 +151,10 @@ def test_predictor_matches_jax(bridged, tiny_model, rng):
     assert set(tp.predict(images[:2])) == {"generated_joints"}
 
 
-def test_predictor_refuses_unported_options(bridged, tmp_path):
-    """Data-parallel serving is refused; the int8 encoder is not (it
-    leaves its activation scales to the first real batch). Without
+def test_predictor_refuses_unported_options(bridged, tmp_path, monkeypatch):
+    """Data-parallel serving is ported: over two CPU device entries it
+    serves what the plain predictor serves (atol 1e-5); the int8 encoder
+    leaves its activation scales to the first real batch. Without
     variables the Predictor restores from ``checkpoint_dir`` (fresh from
     ``seed`` when it holds no checkpoint)."""
     _, _, _, _, _, hmr_sd, mean = bridged
@@ -162,8 +164,16 @@ def test_predictor_refuses_unported_options(bridged, tmp_path):
     restored = Predictor(cfg, smpl=smpl, device="cpu")
     seeded = HMR(smpl, encoder_stage_sizes=STAGES, device="cpu", seed=3).state_dict()
     assert all(torch.equal(v, seeded[k]) for k, v in restored.hmr.state_dict().items())
-    with pytest.raises(NotImplementedError):
-        Predictor(cfg, smpl=smpl, variables=hmr_sd, mean_theta=mean, device="cpu", data_parallel=True)
+    real_mesh = pmesh.make_mesh
+    two = lambda devices=None, batch_size=None: real_mesh(["cpu"] * 2, batch_size)  # noqa: E731
+    monkeypatch.setattr(pmesh, "make_mesh", two)  # two local device entries, simulated on the CPU
+    dp = Predictor(cfg, smpl=smpl, variables=hmr_sd, mean_theta=mean, device="cpu", data_parallel=True)
+    plain = Predictor(cfg, smpl=smpl, variables=hmr_sd, mean_theta=mean, device="cpu")
+    images = np.random.RandomState(6).randint(0, 256, (3, IMG, IMG, 3)).astype(np.uint8)
+    got, ref = dp.predict(images), plain.predict(images)
+    assert len(dp.replicas) == 2 and set(got) == set(ref)
+    for key, v in ref.items():
+        np.testing.assert_allclose(got[key], v, rtol=0, atol=1e-5, err_msg=key)
     int8 = Predictor(cfg, smpl=smpl, variables=hmr_sd, mean_theta=mean, device="cpu", encoder_int8=True)
     assert set(int8.encoder_qparams) == {"weights", "act"} and int8.encoder_qparams["act"] is None
 
@@ -191,8 +201,9 @@ def test_port_imports_no_jax():
     loop, the checkpoints and the Orbax importer, the command lines, the
     renderer, the CUDA kernels' wrappers, the data modules, the int8
     encoder and the serving stack, the native libraries' loader, the native
-    and tf.data pipelines and the closed-loop synthetic data among them)
-    loads no jax, flax, optax, orbax or JAX package module, and none of the
+    and tf.data pipelines, the closed-loop synthetic data, data parallelism
+    and the grain pipeline among them)
+    loads no jax, flax, optax, orbax, grain or JAX package module, and none of the
     optional host libraries that are imported only where they are used
     (OpenCV, tensorboardX, tensorstore, TensorFlow: the card's machine has
     none of them); chip_smoke.py imports none of them either."""
@@ -202,7 +213,7 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'human_pose_estimation_tpu', 'cv2', 'tensorboardX', "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'grain', 'human_pose_estimation_tpu', 'cv2', 'tensorboardX', "
         "'tensorstore', 'tensorflow'))\n"
         "mods = [m for m in sys.modules if m.startswith('human_pose_estimation_tpu_torch')]\n"
         "missing = {'human_pose_estimation_tpu_torch.train.state', 'human_pose_estimation_tpu_torch.train.step', "
@@ -218,14 +229,15 @@ def test_port_imports_no_jax():
         "'human_pose_estimation_tpu_torch.infer.export', 'human_pose_estimation_tpu_torch.cli.serve', "
         "'human_pose_estimation_tpu_torch.cli.export_model', 'human_pose_estimation_tpu_torch.native', "
         "'human_pose_estimation_tpu_torch.data.native_pipeline', 'human_pose_estimation_tpu_torch.data.synthetic', "
-        "'human_pose_estimation_tpu_torch.utils.synthetic_human', 'human_pose_estimation_tpu_torch.cli.create_synthetic'"
+        "'human_pose_estimation_tpu_torch.utils.synthetic_human', 'human_pose_estimation_tpu_torch.cli.create_synthetic', "
+        "'human_pose_estimation_tpu_torch.parallel.mesh', 'human_pose_estimation_tpu_torch.data.grain_pipeline'"
         "} - set(mods)\n"
         "print(len(mods), bad, sorted(missing))\n"
         "sys.exit(1 if bad or missing else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 52  # every module was imported
+    assert int(proc.stdout.split()[0]) >= 55  # every module was imported
 
     tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
     names = set()
@@ -234,7 +246,7 @@ def test_port_imports_no_jax():
             names.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             names.add(node.module or "")
-    banned = {"jax", "jaxlib", "flax", "optax", "orbax", "human_pose_estimation_tpu", "cv2", "tensorboardX",
+    banned = {"jax", "jaxlib", "flax", "optax", "orbax", "grain", "human_pose_estimation_tpu", "cv2", "tensorboardX",
               "tensorstore", "tensorflow"}
     assert not {n for n in names if n.split(".")[0] in banned}, names
 

@@ -12,6 +12,11 @@ penalty's double backward included) within 1e-3 of each leaf's largest
 magnitude (at least 1e-5 of the largest gradient): the JAX step takes the chamfer through the
 expanded-form XLA ``chamfer_loss`` and autodiff, the port through the plain
 version of K2, and the JAX step runs in f64 (see ``step_pair``).
+
+The same step on two gloo ranks of 4 rows each (``two_rank_steps``, worker
+``tests/torch_dp_worker.py``) is held against the JAX step in f32 with
+those tolerances, in both ``gp_mode``s, and against the port's
+one-process step in f64 at 1e-9.
 """
 import copy
 
@@ -40,6 +45,8 @@ from human_pose_estimation_tpu_torch.ops import losses as tlosses
 from human_pose_estimation_tpu_torch.train import step as tstep
 from human_pose_estimation_tpu_torch.train.state import TrainState, create_train_state, make_optimizers
 from human_pose_estimation_tpu_torch.utils.assets import synthetic_mean_params, synthetic_model
+
+import torch_dp_worker as dp_worker  # tests/torch_dp_worker.py: the 2-rank gloo worker
 
 IMG = 56
 BATCH = 8
@@ -142,6 +149,17 @@ def step_pair(jax_setup, tiny_model):
     oracle because JAX's own f32 gradient of the train-mode encoder on the
     CPU is ~1e-3 off its f64 value at this size, while the port's f32
     gradient is within 1e-5 of the port in f64."""
+    return _jax_step(jax_setup, tiny_model)
+
+
+@pytest.fixture(scope="module")
+def step_pair_per_sample(jax_setup, tiny_model):
+    """``step_pair`` with ``gp_mode='per_sample'`` (the same state, batch,
+    key and so the same uniforms)."""
+    return _jax_step(jax_setup, tiny_model, gp_mode="per_sample")
+
+
+def _jax_step(jax_setup, tiny_model, **cfg):
     _, _, state = jax_setup
     f64 = jnp.float64
     with jax.enable_x64(True):
@@ -150,7 +168,7 @@ def step_pair(jax_setup, tiny_model):
         jhmr.regressor = JIEFRegressor(dropout_rate=0.0, compute_dtype=f64)
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(jstep, "make_optimizers", lambda *a, **k: (optax.sgd(1.0), optax.sgd(1.0)))
-            fn = jax.jit(jstep.make_train_step(jhmr, JCritic(compute_dtype=f64), JConfig(**_cfg())))
+            fn = jax.jit(jstep.make_train_step(jhmr, JCritic(compute_dtype=f64), JConfig(**_cfg(**cfg))))
         wide = lambda t: jax.tree.map(
             lambda a: jnp.asarray(a, f64) if jnp.issubdtype(jnp.asarray(a).dtype, jnp.floating) else a, t
         )
@@ -184,6 +202,38 @@ def _jax_grads(before, after):
     return out
 
 
+def _assert_matches_jax(step_pair, metrics, hmr_sd, grads):
+    """A step's ``metrics`` (field -> array), new HMR state dict and
+    gradients (bridge name -> before - after under SGD(1)) against the JAX
+    f64 step of ``step_pair``: metrics and BN statistics at 1e-4 relative,
+    gradients within 1e-3 of each leaf's largest magnitude."""
+    state_np, new_np, metrics_np, _, _ = step_pair
+    for name in METRICS:
+        assert_rel(metrics[name], getattr(metrics_np, name), 1e-4, name)
+    assert float(metrics["critic_penalty"]) > 0.0 and (np.asarray(metrics["mr_losses"]) > 0).all()
+
+    new_sd = port_jax.hmr_state_dict(
+        {"params": {k: new_np.gen_params[k] for k in ("encoder", "regressor")}, "batch_stats": new_np.batch_stats}
+    )
+    stats = [k for k in new_sd if k.endswith(("running_mean", "running_var"))]
+    assert stats
+    for k in stats:
+        assert_rel(hmr_sd[k], new_sd[k].numpy(), 1e-4, k)
+
+    ref = _jax_grads(state_np, new_np)
+    assert set(ref) <= set(grads)
+    scale = max(float(np.abs(g).max()) for g in ref.values())
+    for k, g_ref in ref.items():
+        g = np.asarray(grads[k])
+        # the conv biases before a BN have an exact zero gradient (BN takes
+        # the mean out): both sides hold only rounding there, hence a floor
+        # of 1e-5 of the largest gradient of all
+        tol = max(1e-3 * float(np.abs(g_ref).max()), 1e-5 * scale)
+        assert g.shape == g_ref.shape, k
+        assert float(np.abs(g - g_ref).max()) <= tol, (k, float(np.abs(g - g_ref).max()), tol)
+    assert float(np.abs(ref["critic.kcs_dense.weight"]).max()) > 0  # the critic did train
+
+
 def test_train_step_matches_jax(step_pair, monkeypatch):
     state_np, new_np, metrics_np, arrays, uniforms = step_pair
     cfg = Config(encoder_stage_sizes="1,1,1,1", **_cfg())
@@ -193,32 +243,81 @@ def test_train_step_matches_jax(step_pair, monkeypatch):
     batch, mocap = _torch_batch(arrays)
     metrics = tstep.make_train_step(cfg, device="cpu")(ts, batch, mocap, torch.Generator().manual_seed(0))
     assert ts.step == 1
-    for name in METRICS:
-        assert_rel(getattr(metrics, name), getattr(metrics_np, name), 1e-4, name)
-    assert float(metrics.critic_penalty) > 0.0 and (metrics.mr_losses > 0).all()
-
-    new_sd = port_jax.hmr_state_dict(
-        {"params": {k: new_np.gen_params[k] for k in ("encoder", "regressor")}, "batch_stats": new_np.batch_stats}
-    )
-    sd = ts.hmr.state_dict()
-    stats = [k for k in new_sd if k.endswith(("running_mean", "running_var"))]
-    assert stats
-    for k in stats:
-        assert_rel(sd[k], new_sd[k].numpy(), 1e-4, k)
-
-    ref = _jax_grads(state_np, new_np)
     after = _snapshot(ts)
-    assert set(ref) == set(before)
-    scale = max(float(np.abs(g).max()) for g in ref.values())
-    for k, g_ref in ref.items():
-        g = (before[k] - after[k]).numpy()
-        # the conv biases before a BN have an exact zero gradient (BN takes
-        # the mean out): both sides hold only rounding there, hence a floor
-        # of 1e-5 of the largest gradient of all
-        tol = max(1e-3 * float(np.abs(g_ref).max()), 1e-5 * scale)
-        assert g.shape == g_ref.shape, k
-        assert float(np.abs(g - g_ref).max()) <= tol, (k, float(np.abs(g - g_ref).max()), tol)
-    assert float(np.abs(ref["critic.kcs_dense.weight"]).max()) > 0  # the critic did train
+    assert set(_jax_grads(state_np, new_np)) == set(before)
+    grads = {k: (before[k] - after[k]).numpy() for k in before}
+    _assert_matches_jax(step_pair, {k: v.numpy() for k, v in vars(metrics).items()}, ts.hmr.state_dict(), grads)
+
+
+@pytest.fixture(scope="module")
+def two_rank_steps(step_pair, tmp_path_factory):
+    """The training step on 2 gloo ranks (``tests/torch_dp_worker.py``),
+    each holding 4 of the 8 rows and 12 of the 24 mocap rows (its stage
+    blocks, ``parallel.mesh.row_index``), and in one process over all 8,
+    from ``step_pair``'s bridged state with SGD(1). Cases: the reference
+    penalty with the JAX-drawn global uniforms and dropout 0, in f32 (held
+    against the JAX step) and in f64; the per-sample penalty likewise in
+    f32 (held against ``step_pair_per_sample``), and in f64 with the
+    uniforms and a 0.5 dropout drawn from the step's generator. One spawn
+    runs the four; the one-process runs are the worker's own function.
+    Returns (the ranks' results, the one-process results)."""
+    state_np, _, _, arrays, uniforms = step_pair
+    ts = _torch_state(Config(encoder_stage_sizes="1,1,1,1", **_cfg()), state_np, sgd=True, dropout_rate=0.0)
+    weights = {"hmr": ts.hmr.state_dict(), "critic": ts.critic.state_dict(), "mean_theta": ts.mean_theta.detach()}
+    gen, mocap = arrays
+    base = dict(weights=weights, sgd=True, batch=gen, mocap=mocap, cfg=_cfg(encoder_stage_sizes="1,1,1,1"))
+    cases = {
+        "reference-f32": dict(base, dtype=torch.float32, dropout=0.0, uniforms=uniforms),
+        "reference-f64": dict(base, dtype=torch.float64, dropout=0.0, uniforms=uniforms),
+        "per_sample-f32": dict(
+            base, cfg=dict(base["cfg"], gp_mode="per_sample"), dtype=torch.float32, dropout=0.0, uniforms=uniforms
+        ),
+        "per_sample-f64": dict(
+            base, cfg=dict(base["cfg"], gp_mode="per_sample"), dtype=torch.float64, dropout=0.5, uniforms=None
+        ),
+    }
+    per_rank = {k: dict(c, cfg=dict(c["cfg"], batch_size=BATCH // 2)) for k, c in cases.items()}
+    ranks = dp_worker.spawn({"kind": "step", "cases": per_rank}, str(tmp_path_factory.mktemp("dp_step")))
+    one = {k: dp_worker.run_step(c) for k, c in cases.items() if c["dtype"] == torch.float64}
+    return ranks, one, before_names(ts)
+
+
+def before_names(ts: TrainState):
+    """{worker snapshot key: bridge name} of the trainable tensors, and
+    their values before the step."""
+    names = {f"hmr.{k}" if not k.startswith(("critic.", "mean_theta")) else k: k for k, _ in port_jax_names(ts)}
+    return names, _snapshot(ts)
+
+
+@pytest.mark.parametrize("case", ["reference-f32", "reference-f64", "per_sample-f32", "per_sample-f64"])
+def test_two_rank_train_step(two_rank_steps, step_pair, step_pair_per_sample, case):
+    """Two ranks (4 rows each) against one process (8 rows): the ranks end
+    bit-equal; in f32 the step is held against the JAX f64 step of its
+    ``gp_mode`` with ``test_train_step_matches_jax``'s tolerances; in f64
+    against the port's one-process step at 1e-9 of each tensor's largest
+    magnitude (floor: 1e-5 of the largest of all, for the conv biases
+    before a BN whose exact zero gradient both hold as rounding),
+    ``mr_losses`` at 1e-6: the chamfer computes in f32 on every device and
+    path, so its batch sum rounds at f32."""
+    ranks, one, (names, before) = two_rank_steps
+    got = ranks[0][case]
+    for part in ("metrics", "state"):
+        for k, v in got[part].items():
+            np.testing.assert_array_equal(ranks[1][case][part][k], v, err_msg=k)
+    if case.endswith("f32"):
+        grads = {names[k]: before[names[k]].numpy() - v for k, v in got["state"].items() if k in names}
+        hmr_sd = {k[4:]: torch.from_numpy(v) for k, v in got["state"].items() if k.startswith("hmr.")}
+        _assert_matches_jax(step_pair if case == "reference-f32" else step_pair_per_sample, got["metrics"],
+                            hmr_sd, grads)
+        return
+    ref = one[case]
+    for name in METRICS:
+        assert_rel(got["metrics"][name], ref["metrics"][name], 1e-6 if name == "mr_losses" else 1e-9, name)
+    big = max(float(np.abs(v).max()) for v in ref["state"].values())
+    for k, v in ref["state"].items():
+        tol = 1e-9 * max(float(np.abs(v).max()), 1e-5 * big)
+        assert float(np.abs(got["state"][k] - v).max()) <= tol, (k, float(np.abs(got["state"][k] - v).max()), tol)
+    assert any(k.endswith("running_var") for k in ref["state"])
 
 
 def test_train_step_with_adam_moves_every_group(rng):
