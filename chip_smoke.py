@@ -29,7 +29,12 @@ with K1's launches counted and ``validate_checkpoint`` on ``[trainer]``'s
 checkpoint (``[int8-eval]``), ``BatchingPredictor`` at pipeline depths 1
 and 2 (``[batching]``), the HTTP server under a client process
 (``[http]``) and the ``torch.export`` artifacts for ``cuda`` and ``cpu``,
-loaded again in a fresh process (``[export]``); and last holds one f64
+loaded again in a fresh process (``[export]``); data parallelism in
+child processes (``[data-parallel]``); the weight importers'
+TensorFlow-free halves on stand-in Keras models at full width (a donor
+grafted into a training ``Trainer``, a reference bundle restored by a
+``Predictor`` and swept by ``validate_checkpoint``) and the s2d stem
+against the standard one (``[weights]``); and last holds one f64
 training step on the card against the same step on the CPU. Every phase
 prints one line; any failure raises and the script exits non-zero.
 The line before the last is a JSON object with one entry per ported
@@ -1537,6 +1542,292 @@ def _phase_trainer(torch, cc, card, smpl, mean_theta, train_ms):
 
 
 # ---------------------------------------------------------------------------
+# the weight importers and the s2d stem
+
+
+class _KerasLayer:
+    """A Keras layer as the importers read it: ``.name`` and
+    ``.get_weights()`` (the card's machine has no TensorFlow)."""
+
+    def __init__(self, name, weights=()):
+        self.name, self._weights = name, list(weights)
+
+    def get_weights(self):
+        return list(self._weights)
+
+
+class _KerasModel:
+    def __init__(self, layers):
+        self.layers = layers
+
+    def get_layer(self, name):
+        return next(layer for layer in self.layers if layer.name == name)
+
+
+def _keras_resnet50(rng):
+    """keras.applications.ResNet50(include_top=False)'s weighted layers in
+    its names and shapes, from seeded numpy: HWIO kernels (LeCun-scaled, so
+    that the features stay O(1)) and biases; BN [gamma, beta, moving_mean,
+    moving_variance] away from their initial values, as pretrained weights
+    are."""
+    import numpy as np
+
+    from human_pose_estimation_tpu_torch.models.port_keras import STAGE_BLOCKS
+
+    layers = []
+
+    def conv(name, k, cin, cout):
+        kernel = rng.standard_normal((k, k, cin, cout), np.float32) * np.float32(np.sqrt(1.0 / (k * k * cin)))
+        layers.append(_KerasLayer(name, [kernel, (0.05 * rng.standard_normal(cout)).astype(np.float32)]))
+
+    def bn(name, c):
+        layers.append(_KerasLayer(name, [
+            (1 + 0.2 * rng.standard_normal(c)).astype(np.float32), (0.2 * rng.standard_normal(c)).astype(np.float32),
+            (0.2 * rng.standard_normal(c)).astype(np.float32), rng.lognormal(0.0, 0.3, c).astype(np.float32),
+        ]))
+
+    conv("conv1_conv", 7, 3, 64)
+    bn("conv1_bn", 64)
+    cin = 64
+    for stage, blocks in STAGE_BLOCKS.items():
+        f = 64 * 2 ** (stage - 1)
+        for b in range(1, blocks + 1):
+            prefix = f"conv{stage + 1}_block{b}"
+            if b == 1:
+                conv(f"{prefix}_0_conv", 1, cin, 4 * f)
+                bn(f"{prefix}_0_bn", 4 * f)
+            for i, (k, ci, co) in enumerate(((1, cin, f), (3, f, f), (1, f, 4 * f)), start=1):
+                conv(f"{prefix}_{i}_conv", k, ci, co)
+                bn(f"{prefix}_{i}_bn", co)
+            cin = 4 * f
+    layers.append(_KerasLayer("avg_pool"))
+    return _KerasModel(layers)
+
+
+def _keras_dense(rng, name, n_in, n_out):
+    import numpy as np
+
+    return _KerasLayer(name, [(rng.standard_normal((n_in, n_out), np.float32) / np.float32(np.sqrt(n_in))),
+                              (0.05 * rng.standard_normal(n_out)).astype(np.float32)])
+
+
+def _reference_models(rng):
+    """The reference bundle's models as stand-ins: the encoder, the
+    regressor 2133 -> 1024 -> drop -> 1024 -> drop -> 85 (its output layer
+    as small as the reference initializes it, so that the estimates stay
+    near the mean theta) and the critic's 9 Dense layers, in their Keras
+    names and shapes."""
+    import numpy as np
+
+    limit = np.sqrt(3.0 * 0.02 / (1024 + 85))
+    out = _KerasLayer("dense_2", [rng.uniform(-limit, limit, (1024, 85)).astype(np.float32), np.zeros(85, np.float32)])
+    regressor = _KerasModel([
+        _keras_dense(rng, "dense", 2133, 1024), _KerasLayer("dropout"), _keras_dense(rng, "dense_1", 1024, 1024),
+        _KerasLayer("dropout_1"), out,
+    ])
+    critic = _KerasModel([_keras_dense(rng, name, n_in, n_out) for name, n_in, n_out in (
+        ("kcs_dense", 169, 100), ("joints_dense", 42, 100), ("combined_dense", 200, 1), ("shapes_dense_1", 10, 10),
+        ("shapes_dense_2", 10, 5), ("shapes_dense_3", 5, 1), ("rotation_dense_1", 207, 300),
+        ("rotation_dense_2", 300, 100), ("rotation_dense_3", 100, 1),
+    )])
+    return _keras_resnet50(rng), regressor, critic
+
+
+def phase_weights(torch, cc, card, smpl, mean_theta):
+    """The ``[weights]`` phase (``_phase_weights``) with the loop's own
+    progress lines kept off the output."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        line = _phase_weights(torch, cc, card, smpl, mean_theta)
+    print(line, flush=True)
+
+
+def _phase_weights(torch, cc, card, smpl, mean_theta):
+    """The TensorFlow-free halves of the weight importers at full width, on
+    stand-in Keras models from seeded numpy: (a) a ResNet-50 through
+    ``port_resnet50`` into an import_encoder donor checkpoint and a Trainer
+    grafted from it at [train]'s width (3 steps); (b) the reference bundle
+    through ``import_reference_models`` into a checkpoint that a Predictor
+    restores (64 images, bit-equal to an HMR built from the same state
+    dict) and ``validate_checkpoint`` sweeps (2 batches at [eval]'s width);
+    (c) the s2d stem against the standard stem on (a)'s weights: f32 and
+    bf16 features, encoder forward + backward timed alternately, and the
+    stem's own device time from the profiler."""
+    import shutil
+
+    import numpy as np
+
+    from human_pose_estimation_tpu_torch.cli.import_encoder import write_donor
+    from human_pose_estimation_tpu_torch.config import Config
+    from human_pose_estimation_tpu_torch.core.smpl import save_model_npz
+    from human_pose_estimation_tpu_torch.data.npz_dataset import NpzMocapPipeline
+    from human_pose_estimation_tpu_torch.infer.predictor import Predictor, serving_graph
+    from human_pose_estimation_tpu_torch.models.port_keras import port_resnet50
+    from human_pose_estimation_tpu_torch.models.port_reference import import_reference_models
+    from human_pose_estimation_tpu_torch.models.resnet import ResNet50, convert_params_to_s2d, space_to_depth_2x2
+    from human_pose_estimation_tpu_torch.train.trainer import Trainer
+    from human_pose_estimation_tpu_torch.utils import checkpoint as ckpt
+
+    n, img, p = 8, 224, 16384
+    root = os.path.join(SMOKE_DIR, "weights")
+    shutil.rmtree(root, ignore_errors=True)  # a step at or below the latest on disk is not saved again
+    os.makedirs(root)
+    model_path = os.path.join(root, "model.npz")
+    save_model_npz(smpl, model_path)
+    base = dict(
+        smpl_model_path=model_path, batch_size=n, img_size=img, encoder_dtype="bfloat16", use_mesh_repro_loss=True,
+        mr_metric_stages="all", max_silhouette_points=p, use_gradient_penalty=True, model_dir=None, log_img_step=0,
+        scalar_log_step=1, use_validation=False, checkpoint_every_epochs=1000, num_examples_override=1000 * n,
+    )
+    rng = np.random.default_rng(21)
+    t_phase = time.perf_counter()
+
+    # -- (a) a Keras ResNet-50 -> the donor -> a grafted Trainer, 3 steps --
+    ported = port_resnet50(_keras_resnet50(rng))
+    donor_dir = os.path.join(root, "donor")
+    donor_cfg = Config(**{**base, "checkpoint_dir": donor_dir})
+    _, written = write_donor(donor_cfg, ported, device="cuda")
+    if not written or ckpt.latest_step(donor_dir) != 0:
+        raise AssertionError("the donor checkpoint was not written at step 0")
+    if write_donor(donor_cfg, ported, device="cuda")[1]:
+        raise AssertionError("a second donor write into the same directory reported a write")
+    cfg = Config(**{**base, "checkpoint_dir": os.path.join(root, "grafted"), "init_encoder_from": donor_dir})
+    pairs = _train_batches(torch, smpl, n, p, img, 3, seed=22, device="cuda")
+    mocap = NpzMocapPipeline(cfg, smpl, [MOCAP_SHARD], device_forward=True, seed=3, device="cuda")
+    trainer = Trainer(cfg, dataset=_Resumable([b for b, _ in pairs], n), mocap_dataset=mocap, smpl=smpl,
+                      device="cuda")
+    own = trainer.state.hmr.encoder.state_dict()
+    unequal = [k for k, v in ported.items() if not torch.equal(own[k].cpu(), v)]
+    if unequal or set(own) != set(ported):
+        raise AssertionError(f"the grafted encoder differs from the ported weights: {unequal[:5]}")
+    metrics = []
+    inner = trainer.train_step
+    trainer.train_step = lambda *a: metrics.append(inner(*a)) or metrics[-1]
+    k2 = cc.VALUE_GRAD_LAUNCHES
+    trainer.train(max_steps=3)
+    torch.cuda.synchronize()
+    if cc.VALUE_GRAD_LAUNCHES - k2 != 9 or len(metrics) != 3:
+        raise AssertionError(f"3 grafted steps launched K2 {cc.VALUE_GRAD_LAUNCHES - k2} times, not 9")
+    for m in metrics:
+        for field, value in vars(m).items():
+            if not bool(torch.isfinite(value).all()):
+                raise AssertionError(f"grafted trainer metric {field} is not finite: {value}")
+    step_ms = [ms for tag, step, ms in trainer.writers["train"].history if tag == "perf/step_time_ms"]
+    gen_losses = [float(m.generator_loss) for m in metrics]
+    del trainer, mocap, pairs, metrics
+    t_a = time.perf_counter() - t_phase
+
+    # -- (b) the reference bundle -> a checkpoint -> Predictor, validate_checkpoint
+    encoder_k, regressor_k, critic_k = _reference_models(rng)
+    inital_theta = (np.asarray(mean_theta.cpu()).reshape(1, 85) + 0.01 * rng.standard_normal((1, 85))).astype(
+        np.float32)
+    ref_dir = os.path.join(root, "reference")
+    ref_cfg = Config(**{**base, "checkpoint_dir": ref_dir})
+    _, written = import_reference_models(encoder_k, regressor_k, critic_k, inital_theta, ref_dir, ref_cfg,
+                                         device="cuda")
+    raw, step = ckpt.restore_raw(ref_dir)
+    if not written or step != 0 or not np.array_equal(raw["mean_theta"].numpy().reshape(1, 85), inital_theta):
+        raise AssertionError("the reference import did not write step 0 with mean theta = inital_theta")
+    requests = np.random.RandomState(23).randint(0, 256, size=(64, img, img, 3)).astype("uint8")
+    served = Predictor(ref_cfg.replace(batch_size=64), smpl=smpl, device="cuda").predict(requests)
+    hmr = _seeded_hmr(smpl, "bfloat16", "cuda")
+    hmr.load_state_dict(raw["hmr"])
+    hmr.eval()
+    with torch.inference_mode():
+        built = serving_graph(hmr, torch.from_numpy(requests).cuda(), raw["mean_theta"].cuda().reshape(1, 85))
+    built = {k: v.cpu().numpy() for k, v in built.items()}
+    if set(served) != set(built) or not all(np.array_equal(served[k], built[k]) for k in built):
+        worst = max(float(np.abs(served[k] - built[k]).max()) for k in built)
+        raise AssertionError(f"the restored Predictor differs from an HMR of the same state dict (max {worst:.3e})")
+    if not all(np.isfinite(v).all() for v in served.values()):
+        raise AssertionError("the restored Predictor served non-finite values")
+    val_batches = _eval_batches(torch, torch.Generator().manual_seed(24), n, p, img, 2)
+    validator = Trainer(ref_cfg, val_dataset=[(b, n) for b in val_batches], validation_only=True, smpl=smpl,
+                        device="cuda")
+    k1 = cc.LAUNCHES
+    results = validator.validate_checkpoint()
+    if cc.LAUNCHES - k1 != 6:
+        raise AssertionError(f"validate_checkpoint over 2 batches launched K1 {cc.LAUNCHES - k1} times, not 6")
+    if not all(np.isfinite(results[k]) for k in ("mean_kpr_loss", "mean_mr_loss", "pck@0.5")):
+        raise AssertionError(f"validate_checkpoint results are not finite: {results}")
+    del validator, hmr, served, built
+    t_b = time.perf_counter() - t_phase - t_a
+
+    # -- (c) the s2d stem against the standard stem on (a)'s weights ------
+    std = ResNet50().cuda()
+    std.load_state_dict(ported)
+    s2d = ResNet50(stem="s2d").cuda()
+    s2d.load_state_dict(convert_params_to_s2d(ported))
+    x = (torch.rand(n, img, img, 3, generator=torch.Generator().manual_seed(25)) * 2 - 1).cuda()
+    std.eval()
+    s2d.eval()
+    with torch.no_grad():
+        f32_err = _rel_l2(torch, s2d(x), std(x))
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            bf16_std, bf16_s2d = std(x), s2d(x)
+        bf16_err = _rel_l2(torch, bf16_s2d, bf16_std)
+        bf16_vs_f32 = _rel_l2(torch, bf16_std, std(x))
+    if not f32_err <= 1e-5:
+        raise AssertionError(f"s2d vs standard stem f32 features: rel L2 {f32_err:.3e} > 1e-5")
+    std.train()
+    s2d.train()
+
+    def fwd_bwd(model):
+        def run():
+            model.zero_grad(set_to_none=True)
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                out = model(x)
+            out.float().sum().backward()
+            torch.cuda.synchronize()
+        return run
+
+    def stem(model, prepare):
+        inp = prepare(x).detach().requires_grad_(False)
+
+        def run():
+            model.conv1.zero_grad(set_to_none=True)
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                out = model.conv1(inp)
+            out.float().sum().backward()
+        return run
+
+    for fn in (fwd_bwd(std), fwd_bwd(s2d)):
+        fn()  # warm-up: cuDNN plans, allocator
+    rounds = 8
+    times = _alternate([fwd_bwd(std), fwd_bwd(s2d)], rounds)
+    std_ms, s2d_ms = (1e3 * float(np.median(t)) for t in times)
+    stem_std = _profiled_device_ms(torch, stem(std, lambda t: t.permute(0, 3, 1, 2)), calls=5)
+    stem_s2d = _profiled_device_ms(
+        torch, stem(s2d, lambda t: torch.nn.functional.pad(space_to_depth_2x2(t).permute(0, 3, 1, 2), (2, 1, 2, 1))),
+        calls=5,
+    )
+    enc_std = _profiled_device_ms(torch, fwd_bwd(std), calls=3)
+    enc_s2d = _profiled_device_ms(torch, fwd_bwd(s2d), calls=3)
+    del std, s2d, x
+    t_c = time.perf_counter() - t_phase - t_a - t_b
+
+    return (
+        f"[weights] (a) stand-in Keras ResNet-50 -> port_resnet50 -> import_encoder donor (step 0; a second write "
+        f"into it writes nothing) -> Trainer(init_encoder_from) ResNet-50 {img}px bf16 batch {n} P={p} mr on 3 "
+        f"stages, GP on, mocap 24 from NpzMocapPipeline: grafted encoder bit-equal to the ported state dict "
+        f"({len(ported)} tensors), 3 steps {', '.join(f'{ms:.2f}' for ms in step_ms)} ms, K2 9, metrics finite, "
+        f"generator_loss {gen_losses[0]:.4f} -> {gen_losses[-1]:.4f} ({t_a:.1f} s) | (b) stand-in reference bundle "
+        f"(encoder, regressor 2133-1024-1024-85, 9 critic Dense, inital_theta) -> import_reference_models -> step 0 "
+        f"-> Predictor restore, 64 images {img}px bf16 bit-equal to an HMR of the same state dict; "
+        f"validate_checkpoint 2 batches of {n} at P={p}: kpr {results['mean_kpr_loss']:.4f} mr "
+        f"{results['mean_mr_loss']:.6f} PCK@0.5 {results['pck@0.5']:.4f}, K1 6 ({t_b:.1f} s) | (c) s2d vs standard "
+        f"stem, ResNet-50 on (a)'s weights, batch {n} {img}px: features rel L2 f32 {f32_err:.3e}, bf16 autocast "
+        f"{bf16_err:.3e} (bf16 vs f32, standard stem: {bf16_vs_f32:.3e}); encoder forward + backward (bf16, train "
+        f"mode) alternately, median of {rounds}: standard {std_ms:.3f} ms, s2d {s2d_ms:.3f} ms (host clock); "
+        f"device (profiler): encoder standard {enc_std[0]:.3f} ms in {enc_std[1]:.0f} launches, s2d "
+        f"{enc_s2d[0]:.3f} ms in {enc_s2d[1]:.0f}; stem conv forward + backward standard {stem_std[0]:.3f} ms in "
+        f"{stem_std[1]:.0f} launches, s2d {stem_s2d[0]:.3f} ms in {stem_s2d[1]:.0f} ({t_c:.1f} s) | on {card}"
+    )
+
+
+# ---------------------------------------------------------------------------
 # the serving stack and the int8 encoder
 
 
@@ -2897,6 +3188,9 @@ def main() -> int:
     # parent's one-process f64 reference step is a comparison and stays out of the counts
     for name, n in phase_data_parallel(torch, cc, card, smpl, mean_theta).items():
         counters[name]["launches"] += n
+
+    # the weight importers' TensorFlow-free halves at full width and the s2d stem
+    counted((phase_weights, torch, cc, card, smpl, mean_theta))
 
     phase_train_parity(torch, card, smpl, mean_theta)
 

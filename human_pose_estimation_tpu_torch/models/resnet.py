@@ -17,13 +17,22 @@ parameter names follow the Flax tree (``conv1``, ``bn1``,
 * global average pool head -> (N, 2048) in f32.
 
 The public input is NHWC (N, H, W, 3), as in the JAX package; it is
-permuted to NCHW inside. Only the standard stem is ported.
+permuted to NCHW inside.
+
+``stem='s2d'`` is the JAX package's space-to-depth stem: an exact rewrite
+of the 7x7/2 conv as a 4x4/1 conv over the 2x2 space-to-depth input
+(``space_to_depth_2x2`` on NHWC, before the permute, so that the channel
+order (dy, dx, c) is JAX's), with ``conv1`` held in the (64, 12, 4, 4)
+layout that ``conv1_kernel_to_s2d`` / ``convert_params_to_s2d`` make from
+standard weights. As in the JAX package, no config, CLI or ``HMR`` builds
+it.
 """
 from __future__ import annotations
 
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .. import at_least_f32
@@ -110,13 +119,43 @@ class Bottleneck(nn.Module):
         return torch.relu(y + shortcut)
 
 
-class ResNet(nn.Module):
-    """ResNet v1 backbone with an average-pool feature head."""
+def space_to_depth_2x2(x: torch.Tensor) -> torch.Tensor:
+    """(N, H, W, C) -> (N, H/2, W/2, 4C) with channel order (dy, dx, c);
+    H and W must be even."""
+    n, h, w, c = x.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"the s2d stem needs an even height and width, got {h}x{w}")
+    x = x.reshape(n, h // 2, 2, w // 2, 2, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(n, h // 2, w // 2, 4 * c)
 
-    def __init__(self, stage_sizes: Sequence[int] = STAGE_SIZES[50]):
+
+def conv1_kernel_to_s2d(w7: torch.Tensor) -> torch.Tensor:
+    """Exact rewrite of the 7x7/2 stem kernel for a 2x2 space-to-depth
+    input: OIHW (F, C, 7, 7) -> (F, 4C, 4, 4). The kernel is embedded in
+    8x8 at offset 1; with the input padded (2, 1) per spatial axis, a 4x4/1
+    conv with the result computes pad-3 + 7x7/2 on the raw image."""
+    f, c = w7.shape[:2]
+    w8 = w7.new_zeros((f, c, 8, 8))
+    w8[:, :, 1:8, 1:8] = w7
+    # w'[f, (dy, dx, cc), a, b] = w8[f, cc, 2a + dy, 2b + dx]
+    w = w8.reshape(f, c, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4)
+    return w.reshape(f, 4 * c, 4, 4)
+
+
+class ResNet(nn.Module):
+    """ResNet v1 backbone with an average-pool feature head. ``stem``:
+    'standard' (7x7/2 conv) or 's2d' (its space-to-depth rewrite)."""
+
+    def __init__(self, stage_sizes: Sequence[int] = STAGE_SIZES[50], stem: str = "standard"):
         super().__init__()
+        if stem not in ("standard", "s2d"):
+            raise ValueError(f"stem must be 'standard' or 's2d', got {stem!r}")
         self.stage_sizes = tuple(stage_sizes)
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3)
+        self.stem = stem
+        if stem == "s2d":
+            self.conv1 = nn.Conv2d(12, 64, 4)
+        else:
+            self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3)
         self.bn1 = _bn(64)
         self.pool = nn.MaxPool2d(3, stride=2, padding=1)
         in_ch = 64
@@ -133,15 +172,32 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (N, H, W, 3) NHWC -> (N, feature_dim) f32."""
-        x = x.permute(0, 3, 1, 2)
+        if self.stem == "s2d":
+            x = F.pad(space_to_depth_2x2(x).permute(0, 3, 1, 2), (2, 1, 2, 1))
+        else:
+            x = x.permute(0, 3, 1, 2)
         x = self.pool(torch.relu(self.bn1(self.conv1(x))))
         for name in self.block_names:
             x = getattr(self, name)(x)
         return at_least_f32(x.mean(dim=(2, 3)))
 
 
-def make_resnet(depth: int = 50) -> ResNet:
-    """ResNet-{50,101,152} v1 encoder (Keras layout at every depth)."""
+def ResNet50(stem: str = "standard") -> ResNet:
+    return ResNet(STAGE_SIZES[50], stem=stem)
+
+
+def make_resnet(depth: int = 50, stem: str = "standard") -> ResNet:
+    """ResNet-{50,101,152} v1 encoder (Keras layout at every depth, so
+    keras.applications weights port the same way: models/port_keras.py)."""
     if depth not in STAGE_SIZES:
         raise ValueError(f"encoder depth must be one of {sorted(STAGE_SIZES)}")
-    return ResNet(STAGE_SIZES[depth])
+    return ResNet(STAGE_SIZES[depth], stem=stem)
+
+
+def convert_params_to_s2d(state_dict):
+    """A standard-stem ``ResNet`` state dict rewritten for ``stem='s2d'``: a
+    new dict with ``conv1.weight`` through ``conv1_kernel_to_s2d``; every
+    other entry is shared."""
+    new = dict(state_dict)
+    new["conv1.weight"] = conv1_kernel_to_s2d(new["conv1.weight"])
+    return new

@@ -52,6 +52,7 @@ __all__ = [
     "global_sums",
     "is_distributed",
     "local_rows",
+    "local_world_size",
     "make_mesh",
     "maybe_initialize_distributed",
     "mean_share",
@@ -75,6 +76,15 @@ def rank() -> int:
 
 def world_size() -> int:
     return dist.get_world_size() if is_distributed() else 1
+
+
+def local_world_size() -> int:
+    """The ranks on this node: torchrun's ``LOCAL_WORLD_SIZE``, or the
+    whole world when it is unset (every rank on one node). A node is what
+    the JAX package calls a host: its per-host batch is the per-rank batch
+    times this count."""
+    local = os.environ.get("LOCAL_WORLD_SIZE")
+    return int(local) if local else world_size()
 
 
 def make_mesh(devices: Optional[Sequence] = None, batch_size: Optional[int] = None) -> List[torch.device]:

@@ -26,8 +26,12 @@ straight run drew.
 Data parallelism (the JAX trainer's mesh): under a process group
 (``parallel/mesh.py``, launched with torchrun) every rank runs this loop
 on its own rows and the steps reduce over the ranks (``train/step.py``).
-``config.batch_size`` is the per-process batch, the global batch is R
-times it, and the epoch accounting counts global examples. The state
+``config.batch_size`` is the per-process batch and the global batch is R
+times it. A JAX host is a torchrun node and a JAX device is a card, so
+the JAX per-host batch is ``batch_size`` x ``LOCAL_WORLD_SIZE``, and an
+epoch counts ``num_images / (batch_size x local world)`` steps, as the
+JAX trainer divides by its per-host batch: one pass over the data on one
+node, N passes on N nodes (each JAX host reads 1/N of it). The state
 starts replicated from rank 0 and stays equal on every rank; rank 0 alone
 writes summaries, images and checkpoints (behind a barrier), every rank
 restores, and ``validate_checkpoint`` reports the global batches' means.
@@ -131,8 +135,8 @@ class Trainer:
                     "example count. Add it to data/tfrecords.NUM_EXAMPLES or set "
                     "--num_examples_override."
                 ) from e
-        # batch_size is per process: an epoch counts the global batches
-        self.num_itr_per_epoch = max(num_images / (config.batch_size * pmesh.world_size()), 1)
+        # the JAX trainer divides by its per-host batch; a host is a node here
+        self.num_itr_per_epoch = max(num_images / (config.batch_size * pmesh.local_world_size()), 1)
 
         self.writers: Dict[str, SummaryWriter] = {}
         if not validation_only and config.model_dir and self.chief:

@@ -1,10 +1,12 @@
 """Synthetic SMPL-shaped assets for tests, demos and the smoke run.
 
 Numpy-only copies of ``human_pose_estimation_tpu/utils/assets.py``'s
-``synthetic_model`` and ``synthetic_mean_params``: the same seed gives the
-same arrays as the JAX package.
+``synthetic_model`` and ``synthetic_mean_params`` (the same seed gives the
+same arrays as the JAX package) and ``write_reference_pickle``.
 """
 from __future__ import annotations
+
+import pickle
 
 import numpy as np
 
@@ -53,6 +55,37 @@ def synthetic_model(num_verts: int = 6890, seed: int = 0) -> SMPLModel:
         parents=SMPL_PARENTS,
         faces=faces,
     )
+
+
+def write_reference_pickle(model: SMPLModel, path: str) -> None:
+    """Write ``model`` in the official SMPL pickle layout that
+    ``core.smpl.load_model`` reads: f64 arrays, shapedirs (V, 3, 10),
+    posedirs (V, 3, 207), sparse J_regressor (24, V) and cocoplus_regressor
+    (19, V), kintree_table with the root marked uint32(-1), faces as uint32
+    when there are any."""
+    import scipy.sparse as sp
+
+    def f64(name):
+        return getattr(model, name).detach().cpu().numpy().astype(np.float64)
+
+    v = int(model.v_template.shape[0])
+    kintree = np.zeros((2, 24), dtype=np.uint32)
+    kintree[0] = np.asarray(model.parents, dtype=np.uint32)
+    kintree[0, 0] = np.uint32(0xFFFFFFFF)  # root marker, as in real assets
+    kintree[1] = np.arange(24, dtype=np.uint32)
+    dd = {
+        "v_template": f64("v_template"),
+        "shapedirs": f64("shapedirs").T.reshape(v, 3, 10),
+        "posedirs": f64("posedirs").T.reshape(v, 3, 207),
+        "J_regressor": sp.csc_matrix(f64("j_regressor").T),
+        "weights": f64("lbs_weights"),
+        "cocoplus_regressor": sp.csc_matrix(f64("joint_regressor").T),
+        "kintree_table": kintree,
+    }
+    if model.faces is not None:
+        dd["f"] = np.asarray(model.faces, np.uint32)
+    with open(path, "wb") as f:
+        pickle.dump(dd, f)
 
 
 def synthetic_mean_params(seed: int = 1) -> np.ndarray:

@@ -221,6 +221,29 @@ def test_make_mesh_trims_to_the_gcd_and_the_rank_layout(monkeypatch):
         pmesh.make_mesh()
 
 
+@pytest.mark.parametrize(
+    "world,local,batch,examples",
+    [(1, None, 4, 16), (2, None, 4, 16), (2, 1, 4, 16), (4, 2, 4, 16), (8, 4, 2, 100), (4, 1, 8, 7)],
+)
+def test_epoch_count_is_the_jax_hosts(monkeypatch, world, local, batch, examples):
+    """A JAX host is a torchrun node: the port's steps per epoch equal the
+    JAX trainer's ``num_images / batch_size`` (JAX train/trainer.py:137)
+    with its per-host batch = the per-rank batch x LOCAL_WORLD_SIZE (unset:
+    every rank on one node, the whole world)."""
+    from human_pose_estimation_tpu_torch.train.trainer import Trainer
+
+    _ranks(monkeypatch, 0, world)
+    if local is None:
+        monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", str(local))
+    assert pmesh.local_world_size() == (world if local is None else local)
+    cfg = Config(**_cfg(batch_size=batch, num_examples_override=examples, model_dir=None))
+    trainer = Trainer(cfg, validation_only=True, smpl=synthetic_model(num_verts=120, seed=0), device="cpu")
+    per_host_batch = batch * (world if local is None else local)
+    assert trainer.num_itr_per_epoch == max(examples / per_host_batch, 1)
+
+
 def local_devices(monkeypatch, n):
     """``make_mesh`` sees ``n`` CPU device entries as the local devices (its
     gcd trimming kept): a machine with several cards, simulated."""
