@@ -156,7 +156,7 @@ def _device_breakdown(torch, fn, wall_ms: float, label: str = "K1", names=K1_KER
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    # a record_function range (Optimizer.step, DevicePreprocessor) also has
+    # a record_function range (Optimizer.step, step.prep) also has
     # a CUDA row that spans its kernels on the device's timeline, gaps
     # included: not device work, so left out as torch's own totals do
     rows = [
@@ -1075,7 +1075,7 @@ def phase_fused_train(torch, cc, card, smpl, mean_theta, hosts, raws, num_steps=
 
     wall_ms = 1e3 * float(np.median(times))
     breakdown = _device_breakdown(
-        torch, lambda: run(state, hosts[-1], raws[-1], gen), wall_ms, "K2", K2_KERNELS, span="DevicePreprocessor"
+        torch, lambda: run(state, hosts[-1], raws[-1], gen), wall_ms, "K2", K2_KERNELS, span="step.prep"
     )
     steps = num_steps + 3  # the warm-up, the timed steps, the profiled step and the step of the sync count
     if cc.VALUE_GRAD_LAUNCHES - k2_before != 3 * steps:

@@ -34,7 +34,9 @@ class Config:
     train_from_checkpoint / init_encoder_from, fuse_preprocess and
     steps_per_call (which step the trainer builds), num_examples_override,
     logs / model_dir and the profiler window (profile_dir,
-    profile_start_step, profile_end_step: a ``torch.profiler`` trace).
+    profile_start_step, profile_end_step: a ``torch.profiler`` Chrome
+    trace, which carries the loop's and the step's named spans,
+    ``utils/tracing.py``).
     mesh_axis is not read: data parallelism is over processes
     (``parallel/mesh.py``), with ``batch_size`` the per-process batch."""
 

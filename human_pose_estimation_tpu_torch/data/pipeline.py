@@ -25,6 +25,7 @@ from .. import resolve_device
 from ..config import Config
 from ..parallel import mesh as pmesh
 from ..train.step import GenBatch, HostBatch, mocap_batch
+from ..utils.tracing import span
 from . import tfrecords
 from .augment import AugmentConfig, augment_batch, extract_silhouette
 
@@ -93,7 +94,7 @@ class DevicePreprocessor:
         uint8, "hw" (N, 2), "center" (N, 2), "label" (N, 3, 19)} of numpy
         arrays or (pinned) CPU tensors. ``generator`` (on the device) draws
         the augmentation; ``augment=False`` needs none."""
-        with torch.profiler.record_function("DevicePreprocessor"):
+        with span("step.prep"):
             b = {k: to_device(host_batch[k], self.device) for k in ("image", "seg", "hw", "center", "label")}
             crops, crop_segs, label = augment_batch(
                 b["image"], b["seg"], b["hw"], b["center"], b["label"], generator, self.aug_cfg,

@@ -43,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import at_least_f32, resolve_device
 from ..core.projection import orth_project
 from ..core.smpl import SMPLModel, smpl_forward
+from ..utils.tracing import span
 from .regressor import IEFRegressor
 from .resnet import FlaxBatchNorm2d, ResNet, make_resnet
 
@@ -196,35 +197,38 @@ class HMR(nn.Module):
         if smpl_stages not in ("all", "last"):
             raise ValueError("smpl_stages must be 'all' or 'last'")
         n = images.shape[0]
-        if encoder_qparams is not None:
-            from .quantize import resnet_apply_int8
+        with span("model.encoder"):
+            if encoder_qparams is not None:
+                from .quantize import resnet_apply_int8
 
-            features = resnet_apply_int8(
-                encoder_qparams["weights"], images, self.encoder.stage_sizes, act_scales=encoder_qparams["act"]
-            )
-        elif self.training and self.remat_encoder:
-            # the encoder draws no random numbers, so no RNG state is kept
-            features = checkpoint(
-                self._encode,
-                images,
-                use_reentrant=False,
-                preserve_rng_state=False,
-                context_fn=lambda: (contextlib.nullcontext(), self._recompute_context()),
-            )
-        else:
-            features = self._encode(images)
+                features = resnet_apply_int8(
+                    encoder_qparams["weights"], images, self.encoder.stage_sizes, act_scales=encoder_qparams["act"]
+                )
+            elif self.training and self.remat_encoder:
+                # the encoder draws no random numbers, so no RNG state is kept
+                features = checkpoint(
+                    self._encode,
+                    images,
+                    use_reentrant=False,
+                    preserve_rng_state=False,
+                    context_fn=lambda: (contextlib.nullcontext(), self._recompute_context()),
+                )
+            else:
+                features = self._encode(images)
         theta = at_least_f32(mean_theta).expand(n, -1)
         stages: List[StageOutput] = []
         for stage in range(self.num_stage):
             last = stage == self.num_stage - 1
             # reference quirk: dropout on the final IEF stage only
             stage_train = self.training and last
-            with self._autocast():
+            with span("model.ief"), self._autocast():
                 delta = self.regressor(features, theta, train=stage_train, generator=generator)
             theta = theta + delta
             cam, pose, shape = split_theta(theta)
             if smpl_stages == "all" or last:
-                out = smpl_forward(self.smpl, shape, pose, joint_type=self.joint_type)
+                with span("model.smpl"):
+                    out = smpl_forward(self.smpl, shape, pose, joint_type=self.joint_type)
+                    kp2d = orth_project(out.joints, cam)
                 stages.append(
                     StageOutput(
                         theta=theta,
@@ -234,7 +238,7 @@ class HMR(nn.Module):
                         verts=out.verts,
                         joints3d=out.joints,
                         rotations=out.rotations[:, 1:],
-                        kp2d=orth_project(out.joints, cam),
+                        kp2d=kp2d,
                     )
                 )
             else:

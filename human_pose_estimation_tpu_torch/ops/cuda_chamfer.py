@@ -53,6 +53,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils.tracing import span
+
 __all__ = [
     "BIG",
     "F32IDX_LAUNCHES",
@@ -368,10 +370,11 @@ def chamfer_forward(
     ``pred`` that requires a gradient is refused (``chamfer`` is the
     differentiable entry).
     """
-    _check(gt_points, gt_mask, pred_points)
-    if not _on_cuda(gt_points):
-        return chamfer_forward_reference(gt_points, gt_mask, pred_points)
-    return _forward_cuda(gt_points, gt_mask, pred_points, parts=False)[0]
+    with span("chamfer.k1"):
+        _check(gt_points, gt_mask, pred_points)
+        if not _on_cuda(gt_points):
+            return chamfer_forward_reference(gt_points, gt_mask, pred_points)
+        return _forward_cuda(gt_points, gt_mask, pred_points, parts=False)[0]
 
 
 def chamfer_forward_parts(
@@ -582,7 +585,8 @@ class ChamferFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, gt_points, gt_mask, pred_points):
         if ctx.needs_input_grad[2]:
-            value, grad = chamfer_value_and_grad(gt_points, gt_mask, pred_points)
+            with span("chamfer.k2"):
+                value, grad = chamfer_value_and_grad(gt_points, gt_mask, pred_points)
             ctx.save_for_backward(grad)
             ctx.pred_dtype = pred_points.dtype
             return value

@@ -40,6 +40,7 @@ from ..core.smpl import smpl_forward
 from ..ops import kcs as K
 from ..ops import losses as L
 from ..parallel import mesh as pmesh
+from ..utils.tracing import span
 from .state import TrainState
 
 
@@ -130,7 +131,8 @@ def _stage_losses(stages, batch: GenBatch, critic, c_matrix, cfg: Config):
         else:
             mr.append(zero)
         if not cfg.encoder_only:
-            scores = critic(K.kcs(s.joints3d, c_matrix), s.joints3d[:, :14], s.shape, s.rotations)
+            with span("critic.score"):
+                scores = critic(K.kcs(s.joints3d, c_matrix), s.joints3d[:, :14], s.shape, s.rotations)
             gcl.append(cfg.critic_loss_weight * -pmesh.mean_share(scores, 0).sum())
         else:
             gcl.append(zero)
@@ -210,25 +212,39 @@ def make_train_step(cfg: Config, device=None):
     masks and the penalty's uniforms. The step leaves the modules in the
     mode it found them. Runs on ``cuda`` unless ``device`` says otherwise.
     """
-    dev = resolve_device(device)
+    body = _step_body(cfg, resolve_device(device))
+
+    def train_step(
+        state: TrainState, batch: GenBatch, mocap: Optional[MocapBatch], generator: Optional[torch.Generator]
+    ) -> StepMetrics:
+        with span("step"):
+            return body(state, batch, mocap, generator)
+
+    return train_step
+
+
+def _step_body(cfg: Config, dev: torch.device):
+    """``make_train_step``'s step without its ``step`` span, which the fused
+    step holds around its input preparation too."""
     c_matrix = torch.as_tensor(K.bone_incidence_matrix(), device=dev)
 
     def generator_loss(state: TrainState, batch: GenBatch, generator):
-        with _mode(True, state.hmr):
+        with span("gen.forward"), _mode(True, state.hmr):
             stages = state.hmr(batch.images, state.mean_theta, smpl_stages="all", generator=generator)
-        kpr, mr, gcl = _stage_losses(stages, batch, state.critic, c_matrix, cfg)
-        loss = torch.zeros((), device=dev)
-        if cfg.use_kpr_loss:
-            loss = loss + kpr[-1]
-        if cfg.use_mesh_repro_loss:
-            loss = loss + mr[-1]
-        if not cfg.encoder_only:
-            loss = loss + gcl[-1]
-        if cfg.cam_scale_hinge > 0.0:
-            # gauge fix: keep the last stage's weak-perspective scale out of
-            # the mirrored s < 0 gauge; zero whenever s >= margin
-            s = stages[-1].cam[:, 0]
-            loss = loss + cfg.cam_scale_hinge * pmesh.mean_share(torch.relu(cfg.cam_scale_margin - s).square())
+        with span("gen.losses"):
+            kpr, mr, gcl = _stage_losses(stages, batch, state.critic, c_matrix, cfg)
+            loss = torch.zeros((), device=dev)
+            if cfg.use_kpr_loss:
+                loss = loss + kpr[-1]
+            if cfg.use_mesh_repro_loss:
+                loss = loss + mr[-1]
+            if not cfg.encoder_only:
+                loss = loss + gcl[-1]
+            if cfg.cam_scale_hinge > 0.0:
+                # gauge fix: keep the last stage's weak-perspective scale out of
+                # the mirrored s < 0 gauge; zero whenever s >= margin
+                s = stages[-1].cam[:, 0]
+                loss = loss + cfg.cam_scale_hinge * pmesh.mean_share(torch.relu(cfg.cam_scale_margin - s).square())
         return loss, stages, (kpr, mr, gcl)
 
     def critic_loss(critic, fakes, real: MocapBatch, generator) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -257,27 +273,44 @@ def make_train_step(cfg: Config, device=None):
             # the joints' gradient does not take the path through kcs
             i_kcs = K.kcs(i_joints, c_matrix)
             inputs = [t.requires_grad_() for t in (i_kcs, i_joints, i_shapes, i_rs)]
-            out = critic(i_kcs, i_joints[:, :14], i_shapes, i_rs)
-            grads = torch.autograd.grad(out.sum(), inputs, create_graph=True)
-            penalty = L.gradient_penalty(grads, mode=cfg.gp_mode)
+            with span("critic.penalty"):
+                out = critic(i_kcs, i_joints[:, :14], i_shapes, i_rs)
+                grads = torch.autograd.grad(out.sum(), inputs, create_graph=True)
+                penalty = L.gradient_penalty(grads, mode=cfg.gp_mode)
             wgan = wgan + 10.0 * penalty
         return wgan, penalty
 
-    def train_step(
+    def step(
         state: TrainState, batch: GenBatch, mocap: Optional[MocapBatch], generator: Optional[torch.Generator]
     ) -> StepMetrics:
         # ------------------------- generator update -----------------------
         gen_loss, stages, (kpr, mr, gcl) = generator_loss(state, batch, generator)
         gen_params = state.gen_params()
-        grads = torch.autograd.grad(gen_loss, gen_params, allow_unused=True)
-        grads = pmesh.all_reduce_grads(gen_params, grads)  # one flat all-reduce; identity on one process
-        _apply(state.gen_opt, state.gen_sched, gen_params, grads)
+        with span("gen.backward"):
+            grads = torch.autograd.grad(gen_loss, gen_params, allow_unused=True)
+            grads = pmesh.all_reduce_grads(gen_params, grads)  # one flat all-reduce; identity on one process
+        with span("gen.adam"):
+            _apply(state.gen_opt, state.gen_sched, gen_params, grads)
 
         fake_joints = torch.cat([s.joints3d[:, :14] for s in stages]).detach()
         fake_shapes = torch.cat([s.shape for s in stages]).detach()
         fake_rs = torch.cat([s.rotations for s in stages]).detach()
         zero = torch.zeros((), device=dev)
-        with torch.no_grad():
+
+        # --------------------------- critic update ------------------------
+        if cfg.encoder_only or mocap is None:
+            c_loss, penalty = zero, zero
+        else:
+            with span("critic.forward"):
+                c_loss, penalty = critic_loss(state.critic, (fake_joints, fake_shapes, fake_rs), mocap, generator)
+            c_params = list(state.critic.parameters())
+            with span("critic.backward"):
+                c_grads = pmesh.all_reduce_grads(c_params, torch.autograd.grad(c_loss, c_params, allow_unused=True))
+            with span("critic.adam"):
+                _apply(state.critic_opt, state.critic_sched, c_params, c_grads)
+
+        state.step += 1
+        with span("step.metrics"), torch.no_grad():
             bone_pred = pmesh.mean_share(K.bone_lengths_sq(fake_joints, c_matrix).sum(dim=1))
             # a metric, not a critic input: computed whenever mocap is given
             bone_gt = (
@@ -285,22 +318,11 @@ def make_train_step(cfg: Config, device=None):
                 if mocap is not None
                 else zero
             )
-
-        # --------------------------- critic update ------------------------
-        if cfg.encoder_only or mocap is None:
-            c_loss, penalty = zero, zero
-        else:
-            c_loss, penalty = critic_loss(state.critic, (fake_joints, fake_shapes, fake_rs), mocap, generator)
-            c_params = list(state.critic.parameters())
-            c_grads = pmesh.all_reduce_grads(c_params, torch.autograd.grad(c_loss, c_params, allow_unused=True))
-            _apply(state.critic_opt, state.critic_sched, c_params, c_grads)
-
-        state.step += 1
-        # the ranks' shares summed into the global batch's values
-        fields = pmesh.global_sums((kpr, mr, gcl, gen_loss, c_loss, penalty, bone_pred, bone_gt))
+            # the ranks' shares summed into the global batch's values
+            fields = pmesh.global_sums((kpr, mr, gcl, gen_loss, c_loss, penalty, bone_pred, bone_gt))
         return StepMetrics(*(t.detach() for t in fields))
 
-    return train_step
+    return step
 
 
 def make_fused_train_step(cfg: Config, smpl, augment: bool = True, device=None):
@@ -324,17 +346,19 @@ def make_fused_train_step(cfg: Config, smpl, augment: bool = True, device=None):
     # the augmentation draws for the global batch under a process group
     prep = DevicePreprocessor(cfg, augment=augment, device=dev, global_draws=True)
     body = smpl.to(dev)
-    base = make_train_step(cfg, device=dev)
+    base = _step_body(cfg, dev)
 
     def fused(
         state: TrainState, host: HostBatch, mocap_raw: Optional[Tuple], generator: Optional[torch.Generator]
     ) -> StepMetrics:
-        batch = prep(host._asdict(), generator)
-        mocap = None
-        if mocap_raw is not None:
-            pose, shape = (to_device(t, dev) for t in mocap_raw)
-            mocap = mocap_batch(body, pose, shape)
-        return base(state, batch, mocap, generator)
+        with span("step"):
+            batch = prep(host._asdict(), generator)
+            mocap = None
+            if mocap_raw is not None:
+                with span("step.mocap"):
+                    pose, shape = (to_device(t, dev) for t in mocap_raw)
+                    mocap = mocap_batch(body, pose, shape)
+            return base(state, batch, mocap, generator)
 
     return fused
 

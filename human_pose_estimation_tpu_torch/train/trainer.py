@@ -14,7 +14,8 @@ Around the step functions of ``train/step.py``:
 * a checkpoint every ``checkpoint_every_epochs`` epochs: the whole state
   and the input streams' positions (``utils/checkpoint.py``);
 * ``profile_dir``: a ``torch.profiler`` Chrome trace from
-  ``profile_start_step`` to ``profile_end_step``;
+  ``profile_start_step`` to ``profile_end_step``, with the named spans of
+  the loop, the step and the model (``utils/tracing.py``);
 * the full checkpoint validation sweep: mean KPR / MR losses, PCK@0.5,
   the PCK curve, its AUC and per-joint PCK, and best / worst rendering.
 
@@ -59,6 +60,7 @@ from ..parallel import mesh as pmesh
 from ..utils import checkpoint as ckpt
 from ..utils.mean_params import load_mean_theta
 from ..utils.summary import SummaryWriter
+from ..utils.tracing import span
 from .state import TrainState, create_train_state, step_generator
 from .step import StepMetrics, make_fused_train_step, make_multi_step, make_train_step, make_val_step
 
@@ -269,119 +271,123 @@ class Trainer:
         last_logged_step = start_step
         stop = False
         while not stop:
-            # -- this dispatch's batches ---------------------------------
-            try:
-                gathered = []
-                for _ in range(k):
-                    b, _n = next(data_iter)
-                    m = next(mocap_iter) if (mocap_iter is not None and need_mocap) else None
-                    gathered.append((b, m))
-            except StopIteration:
-                break
-            gen = step_generator(cfg.seed + 1, self.state.step, self.device)
-            if k == 1:
-                metrics = self.train_step(self.state, gathered[0][0], gathered[0][1], gen)
-            else:
-                # k steps in one call, metrics stacked (k, ...) on the device
-                mocaps = [g[1] for g in gathered] if gathered[0][1] is not None else None
-                metrics = self._multi_step(self.state, [g[0] for g in gathered], mocaps, gen)
-            got = None  # the metrics on the host, copied once per dispatch when a step logs
-
-            for j in range(k):
-                # host-side step counter: reading the state would not sync,
-                # but this is the loop's own count
-                global_itr += 1
-                step = start_step + global_itr
-                self._profile(step)
-
-                # The last step of each epoch always logs, so that the epoch
-                # averages and `history` are never empty when the cadence
-                # exceeds the epoch length.
-                cadence = max(cfg.scalar_log_step, 1)
-                epoch_final = itr + 1 >= self.num_itr_per_epoch
-                do_scalars = cadence == 1 or step % cadence == 0 or epoch_final
-                if do_scalars:
-                    if got is None:
-                        got = fetch_metrics(metrics)
-                    row = {f: v[j] for f, v in got.items()} if k > 1 else got
-                    now = time.time()
-                    train_writer.scalar(
-                        "perf/step_time_ms", (now - t_step) * 1e3 / max(step - last_logged_step, 1), step
-                    )
-                    t_step = now
-                    last_logged_step = step
-
-                    # -- scalars ------------------------------------------
-                    if cfg.use_kpr_loss:
-                        v = float(row["kpr_losses"][-1])
-                        train_writer.scalar("generator/kpr_loss", v, step)
-                        history["kpr"].append(v)
-                        epoch_acc["kpr"].append(v)
-                    if cfg.use_mesh_repro_loss:
-                        v = float(row["mr_losses"][-1])
-                        train_writer.scalar("generator/mr_loss", v, step)
-                        history["mr"].append(v)
-                        epoch_acc["mr"].append(v)
-                    if cfg.do_bone_evaluation:
-                        train_writer.scalar("bones/avg_total_bone_length_pred", float(row["bone_length_pred"]), step)
-                        train_writer.scalar("bones/avg_total_bone_length_gt", float(row["bone_length_gt"]), step)
-                    if not cfg.encoder_only:
-                        c_loss = float(row["critic_loss"])
-                        gc_loss = float(row["gen_critic_losses"][-1])
-                        train_writer.scalar("critic/critic_network_loss", c_loss, step)
-                        train_writer.scalar("critic/generator_critic_loss", gc_loss, step)
-                        train_writer.scalar("critic/penalty", float(row["critic_penalty"]), step)
-                        history["critic"].append(c_loss)
-                        epoch_acc["critic"].append(c_loss)
-                        history["gen_critic"].append(gc_loss)
-                        epoch_acc["gen_critic"].append(gc_loss)
-
-                # -- image summaries --------------------------------------
-                if cfg.log_img_step and step % cfg.log_img_step == 0:
-                    self._log_images(train_writer, gathered[j][0], step)
-
-                # -- validation every N steps -----------------------------
-                if cfg.use_validation and val_iter is not None and step % cfg.validation_step_size == 0:
+            with span("loop.iter"):
+                # -- this dispatch's batches ---------------------------------
+                with span("loop.next"):
                     try:
-                        val_batch, _ = next(val_iter)
+                        gathered = []
+                        for _ in range(k):
+                            b, _n = next(data_iter)
+                            m = next(mocap_iter) if (mocap_iter is not None and need_mocap) else None
+                            gathered.append((b, m))
                     except StopIteration:
-                        val_iter = iter(self.val_dataset)
-                        val_batch, _ = next(val_iter)
-                    vout = self.val_step(self.state.mean_theta, val_batch)
-                    kpr_v, mr_v = torch.stack([vout["kpr_losses"][-1], vout["mr_losses"][-1]]).tolist()
-                    if cfg.use_kpr_loss:
-                        val_writer.scalar("generator/kpr_loss", kpr_v, step)
-                    if cfg.use_mesh_repro_loss:
-                        val_writer.scalar("generator/mr_loss", mr_v, step)
+                        break
+                    gen = step_generator(cfg.seed + 1, self.state.step, self.device)
+                if k == 1:
+                    metrics = self.train_step(self.state, gathered[0][0], gathered[0][1], gen)
+                else:
+                    # k steps in one call, metrics stacked (k, ...) on the device
+                    mocaps = [g[1] for g in gathered] if gathered[0][1] is not None else None
+                    metrics = self._multi_step(self.state, [g[0] for g in gathered], mocaps, gen)
+                got = None  # the metrics on the host, copied once per dispatch when a step logs
+
+                for j in range(k):
+                    # host-side step counter: reading the state would not sync,
+                    # but this is the loop's own count
+                    global_itr += 1
+                    step = start_step + global_itr
+                    self._profile(step)
+
+                    # The last step of each epoch always logs, so that the epoch
+                    # averages and `history` are never empty when the cadence
+                    # exceeds the epoch length.
+                    cadence = max(cfg.scalar_log_step, 1)
+                    epoch_final = itr + 1 >= self.num_itr_per_epoch
+                    do_scalars = cadence == 1 or step % cadence == 0 or epoch_final
+                    if do_scalars:
+                        if got is None:
+                            with span("loop.fetch"):
+                                got = fetch_metrics(metrics)
+                        with span("loop.log"):
+                            row = {f: v[j] for f, v in got.items()} if k > 1 else got
+                            now = time.time()
+                            train_writer.scalar(
+                                "perf/step_time_ms", (now - t_step) * 1e3 / max(step - last_logged_step, 1), step
+                            )
+                            t_step = now
+                            last_logged_step = step
+
+                            # -- scalars ------------------------------------------
+                            if cfg.use_kpr_loss:
+                                v = float(row["kpr_losses"][-1])
+                                train_writer.scalar("generator/kpr_loss", v, step)
+                                history["kpr"].append(v)
+                                epoch_acc["kpr"].append(v)
+                            if cfg.use_mesh_repro_loss:
+                                v = float(row["mr_losses"][-1])
+                                train_writer.scalar("generator/mr_loss", v, step)
+                                history["mr"].append(v)
+                                epoch_acc["mr"].append(v)
+                            if cfg.do_bone_evaluation:
+                                for tag, f in (("pred", "bone_length_pred"), ("gt", "bone_length_gt")):
+                                    train_writer.scalar(f"bones/avg_total_bone_length_{tag}", float(row[f]), step)
+                            if not cfg.encoder_only:
+                                c_loss = float(row["critic_loss"])
+                                gc_loss = float(row["gen_critic_losses"][-1])
+                                train_writer.scalar("critic/critic_network_loss", c_loss, step)
+                                train_writer.scalar("critic/generator_critic_loss", gc_loss, step)
+                                train_writer.scalar("critic/penalty", float(row["critic_penalty"]), step)
+                                history["critic"].append(c_loss)
+                                epoch_acc["critic"].append(c_loss)
+                                history["gen_critic"].append(gc_loss)
+                                epoch_acc["gen_critic"].append(gc_loss)
+
+                    # -- image summaries --------------------------------------
                     if cfg.log_img_step and step % cfg.log_img_step == 0:
-                        self._log_images(val_writer, val_batch, step)
+                        self._log_images(train_writer, gathered[j][0], step)
 
-                itr += 1
-                self._progress(epoch, itr)
+                    # -- validation every N steps -----------------------------
+                    if cfg.use_validation and val_iter is not None and step % cfg.validation_step_size == 0:
+                        try:
+                            val_batch, _ = next(val_iter)
+                        except StopIteration:
+                            val_iter = iter(self.val_dataset)
+                            val_batch, _ = next(val_iter)
+                        vout = self.val_step(self.state.mean_theta, val_batch)
+                        kpr_v, mr_v = torch.stack([vout["kpr_losses"][-1], vout["mr_losses"][-1]]).tolist()
+                        if cfg.use_kpr_loss:
+                            val_writer.scalar("generator/kpr_loss", kpr_v, step)
+                        if cfg.use_mesh_repro_loss:
+                            val_writer.scalar("generator/mr_loss", mr_v, step)
+                        if cfg.log_img_step and step % cfg.log_img_step == 0:
+                            self._log_images(val_writer, val_batch, step)
 
-                # -- epoch boundary ---------------------------------------
-                if itr >= self.num_itr_per_epoch:
-                    itr = 0
-                    epoch += 1
-                    dt = time.time() - t_epoch
-                    if epoch % cfg.checkpoint_every_epochs == 0:
-                        self.save()
-                    msg = f"Finished epoch {epoch - 1}, average losses:"
-                    for key, label in (("kpr", "kpr"), ("mr", "mr"), ("gen_critic", "gc"), ("critic", "cn")):
-                        if epoch_acc[key]:
-                            msg += f" {label}={np.mean(epoch_acc[key]):.2f}"
-                    self._print(msg)
-                    epoch_acc = {key: [] for key in epoch_acc}
-                    if epoch >= cfg.epoch:
+                    itr += 1
+                    self._progress(epoch, itr)
+
+                    # -- epoch boundary ---------------------------------------
+                    if itr >= self.num_itr_per_epoch:
+                        itr = 0
+                        epoch += 1
+                        dt = time.time() - t_epoch
+                        if epoch % cfg.checkpoint_every_epochs == 0:
+                            self.save()
+                        msg = f"Finished epoch {epoch - 1}, average losses:"
+                        for key, label in (("kpr", "kpr"), ("mr", "mr"), ("gen_critic", "gc"), ("critic", "cn")):
+                            if epoch_acc[key]:
+                                msg += f" {label}={np.mean(epoch_acc[key]):.2f}"
+                        self._print(msg)
+                        epoch_acc = {key: [] for key in epoch_acc}
+                        if epoch >= cfg.epoch:
+                            stop = True
+                            break
+                        eta = datetime.datetime.now() + datetime.timedelta(seconds=(cfg.epoch - epoch) * dt)
+                        self._print(f"Starting epoch {epoch} ({dt / 60:.2f} min/epoch, approx done {eta})")
+                        t_epoch = time.time()
+
+                    if max_steps is not None and step >= max_steps:
                         stop = True
                         break
-                    eta = datetime.datetime.now() + datetime.timedelta(seconds=(cfg.epoch - epoch) * dt)
-                    self._print(f"Starting epoch {epoch} ({dt / 60:.2f} min/epoch, approx done {eta})")
-                    t_epoch = time.time()
-
-                if max_steps is not None and step >= max_steps:
-                    stop = True
-                    break
 
         if self._profiler is not None:  # the run ended inside the window
             self._stop_profiler(start_step + global_itr)
