@@ -22,7 +22,10 @@ passed to ``forward``. With ``remat_encoder`` the train-mode encoder
 keeps no activations for the backward and recomputes them there
 (``torch.utils.checkpoint``); the recompute leaves the BN running
 statistics alone, so that they are updated once per step, as JAX's
-``jax.checkpoint`` returns them once.
+``jax.checkpoint`` returns them once. Otherwise a train-mode encoder on the
+card under grad mode, with no process group, replays its forward and
+backward as one CUDA graph pair (``models/encoder_graph.py``, which names
+the rules); every other call runs it eagerly.
 
 The int8 serving encoder: ``HMR.quantize_encoder`` folds and quantizes the
 encoder's weights once (``models/quantize.py``), and ``forward(...,
@@ -44,6 +47,7 @@ from .. import at_least_f32, resolve_device
 from ..core.projection import orth_project
 from ..core.smpl import SMPLModel, smpl_forward
 from ..utils.tracing import span
+from . import encoder_graph
 from .regressor import IEFRegressor
 from .resnet import FlaxBatchNorm2d, ResNet, make_resnet
 
@@ -213,6 +217,8 @@ class HMR(nn.Module):
                     preserve_rng_state=False,
                     context_fn=lambda: (contextlib.nullcontext(), self._recompute_context()),
                 )
+            elif encoder_graph.bypass(self, images) is None:
+                features = encoder_graph.encode(self, images)
             else:
                 features = self._encode(images)
         theta = at_least_f32(mean_theta).expand(n, -1)

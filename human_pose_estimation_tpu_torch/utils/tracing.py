@@ -28,6 +28,9 @@ stage):
         step.mocap      the mocap copied and posed by the body model
         gen.forward     the HMR forward
           model.encoder the ResNet encoder
+            model.encoder.graph  its forward replayed as a CUDA graph
+                        (models/encoder_graph.py; the backward replays
+                        inside gen.backward)
           model.ief     per stage, the IEF regressor
           model.smpl    per stage, the body model and the projection
         gen.losses      the per-stage losses
