@@ -23,6 +23,10 @@ class Config:
     loss weights and toggles, the learning rates and schedule,
     encoder_dtype ('float32' | 'bfloat16', autocast on the card),
     encoder_depth, encoder_stage_sizes (a shallow encoder, e.g. "1,1,1,1"),
+    and the port's own model keys backbone / head ('resnet' with 'ief', or
+    HMR 2.0's 'vit_h' with 'transformer'), vit_shape and head_shape
+    (smaller widths for tests, "depth,width,heads,mlp" and
+    "depth,width,heads,dim_head,mlp"; "" for the published ones),
     encoder_int8 (the post-training int8 encoder for serving and the
     validation sweep, ``models/quantize.py``), remat_encoder, mr_scale_mode,
     mr_metric_stages, cam_scale_hinge / margin, gp_mode,
@@ -112,6 +116,10 @@ class Config:
     mr_metric_stages: str = "all"  # 'all' | 'last'
     num_examples_override: int = 0
     encoder_stage_sizes: str = ""
+    backbone: str = "resnet"  # 'resnet' | 'vit_h' (models/vit.py)
+    head: str = "ief"  # 'ief' | 'transformer' (models/transformer_head.py)
+    vit_shape: str = ""  # "" = ViT-H/16: "32,1280,16,5120"
+    head_shape: str = ""  # "" = HMR 2.0's head: "6,1024,8,64,1024"
     seed: int = 0
     input_pipeline: str = "tfrecord"
     mesh_axis: str = "data"

@@ -155,14 +155,20 @@ def global_rigid_transform(
 def smpl_forward(
     model: SMPLModel,
     beta: torch.Tensor,
-    theta: torch.Tensor,
+    theta: Optional[torch.Tensor],
     joint_type: str = "cocoplus",
+    rotations: Optional[torch.Tensor] = None,
 ) -> SMPLOutput:
-    """Batched SMPL forward: beta (N, 10), theta (N, 72) axis-angle ->
-    verts (N, V, 3), joints (N, 19|14, 3), rotations (N, 24, 3, 3),
-    joints_smpl (N, 24, 3). joint_type: 'cocoplus' (19) or 'lsp' (14)."""
+    """Batched SMPL forward from beta (N, 10) and the pose, given either as
+    ``theta`` (N, 72) axis-angle, turned into matrices by Rodrigues, or as
+    ``rotations`` (N, 24, 3, 3) matrices (``theta`` None), which skip it;
+    the blend shapes, the kinematic chain and the skinning are shared.
+    Returns verts (N, V, 3), joints (N, 19|14, 3), rotations (N, 24, 3,
+    3), joints_smpl (N, 24, 3). joint_type: 'cocoplus' (19) or 'lsp' (14)."""
     if joint_type not in ("cocoplus", "lsp"):
         raise ValueError(f"joint_type must be 'cocoplus' or 'lsp', got {joint_type!r}")
+    if (theta is None) == (rotations is None):
+        raise ValueError("give the pose as exactly one of theta (axis-angle) and rotations (matrices)")
     n = beta.shape[0]
     v = model.num_verts
 
@@ -171,7 +177,8 @@ def smpl_forward(
     joints_rest = torch.einsum("nvc,vk->nkc", v_shaped, model.j_regressor)
 
     # 2. per-joint rotations and pose blendshapes
-    rotations = rodrigues(theta.reshape(n, NUM_JOINTS, 3))
+    if rotations is None:
+        rotations = rodrigues(theta.reshape(n, NUM_JOINTS, 3))
     eye = torch.eye(3, dtype=rotations.dtype, device=rotations.device)
     pose_feature = (rotations[:, 1:] - eye).reshape(n, POSE_FEATURE_DIM)
     v_posed = (pose_feature @ model.posedirs).reshape(n, v, 3) + v_shaped

@@ -107,27 +107,16 @@ class Predictor:
         largest count that divides the batch; the CPU is one device), each
         serving its equal slice of the padded batch. Without variables and mean_theta, both are restored from
         ``config.checkpoint_dir`` (fresh from ``config.seed`` when it holds
-        no checkpoint). The encoder is the one ``config`` describes
-        (``encoder_depth``, or ``encoder_stage_sizes`` when set); weights of
-        another shape are refused. outputs: restrict the returned keys.
+        no checkpoint). The model is the one ``config`` describes
+        (``HMR.from_config``: the ResNet of ``encoder_depth``, or of
+        ``encoder_stage_sizes`` when set, or HMR 2.0's ViT and head); weights
+        of another shape are refused. outputs: restrict the returned keys.
         device: ``cuda`` unless the caller asks for the CPU."""
         self.config = config
         self.batch_size = batch_size or config.batch_size
         self.outputs = tuple(outputs) if outputs else None
         self.smpl = smpl if smpl is not None else load_model(config.smpl_model_path)
-        stage_sizes = None
-        if config.encoder_stage_sizes:  # shallow-encoder override (smoke runs, tests)
-            stage_sizes = tuple(int(x) for x in config.encoder_stage_sizes.split(","))
-        self.hmr = HMR(
-            self.smpl,
-            num_stage=config.num_stage,
-            joint_type=config.joint_type,
-            encoder_dtype=config.encoder_dtype,
-            encoder_stage_sizes=stage_sizes,
-            encoder_depth=config.encoder_depth,
-            device=device,
-            seed=config.seed,
-        )
+        self.hmr = HMR.from_config(self.smpl, config, device=device, seed=config.seed)
         source = "the given variables"
         if variables is None or mean_theta is None:
             from ..utils.checkpoint import restore_for_inference
@@ -137,11 +126,12 @@ class Predictor:
         try:
             self.hmr.load_state_dict(variables)
         except RuntimeError as e:
-            encoder = (
-                f"encoder_stage_sizes={config.encoder_stage_sizes!r}"
-                if config.encoder_stage_sizes
-                else f"encoder_depth={config.encoder_depth}"
-            )
+            if config.backbone != "resnet":
+                encoder = f"backbone={config.backbone!r}, vit_shape={config.vit_shape!r}"
+            elif config.encoder_stage_sizes:
+                encoder = f"encoder_stage_sizes={config.encoder_stage_sizes!r}"
+            else:
+                encoder = f"encoder_depth={config.encoder_depth}"
             raise RuntimeError(
                 f"the weights of {source} do not fit the configured encoder ({encoder}): {e}"
             ) from e

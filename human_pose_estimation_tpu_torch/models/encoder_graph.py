@@ -14,9 +14,10 @@ takes the graph pair only where it returns None (the int8 encoder, an
 inference path, branches off before): the encoder in train mode under
 grad mode, every encoder parameter and not the images needing a
 gradient, no rematerialisation (its recompute belongs to the eager
-backward), no process group (the BatchNorm moments' all-reduce cannot sit
-in a graph) and a CUDA input. Everything else runs the encoder eagerly, as
-before.
+backward), an encoder that draws no random numbers (the ViT's stochastic
+depth draws from the step's generator, which a replay would not advance),
+no process group (the BatchNorm moments' all-reduce cannot sit in a graph)
+and a CUDA input. Everything else runs the encoder eagerly, as before.
 
 What keeps the replay exact:
 
@@ -76,7 +77,10 @@ def _tensors(encoder):
 
 def bypass(hmr, images: torch.Tensor) -> Optional[str]:
     """Why ``hmr``'s encoder runs eagerly on ``images``, or None where the
-    graph pair takes the call."""
+    graph pair takes the call. The rules, in order: eval mode, no grad
+    mode, ``remat_encoder``, an encoder that draws random numbers in its
+    forward (the ViT's stochastic depth), a process group, gradients other
+    than every encoder parameter's, a device other than CUDA."""
     encoder = hmr.encoder
     if not encoder.training:
         return "eval mode"
@@ -84,6 +88,8 @@ def bypass(hmr, images: torch.Tensor) -> Optional[str]:
         return "no grad mode"
     if hmr.remat_encoder:
         return "remat_encoder"
+    if getattr(encoder, "draws_random", False):
+        return "random numbers in the forward"
     if pmesh.is_distributed():
         return "process group"
     if images.requires_grad or not all(p.requires_grad for p in _tensors(encoder)[0]):

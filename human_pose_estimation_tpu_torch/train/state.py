@@ -169,30 +169,14 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return gen
 
 
-def _stage_sizes(cfg: Config):
-    if not cfg.encoder_stage_sizes:
-        return None
-    return tuple(int(x) for x in cfg.encoder_stage_sizes.split(","))
-
-
 def create_train_state(smpl, mean_theta, cfg: Config, device=None, seed: int = 0) -> TrainState:
-    """A fresh state from a seed: the HMR (``cfg``'s encoder, stages,
-    dtype and ``remat_encoder``) and the critic with the JAX package's
+    """A fresh state from a seed: the HMR (``HMR.from_config``, with
+    ``remat_encoder``) and the critic with the JAX package's
     initialisers, the mean theta as a trainable (1, 85) parameter, and the
     optimizers of ``make_optimizers``. Runs on ``cuda`` unless ``device``
     says otherwise. Under a process group every rank then holds rank 0's
     state (``parallel.mesh.replicate``)."""
-    hmr = HMR(
-        smpl,
-        num_stage=cfg.num_stage,
-        joint_type=cfg.joint_type,
-        encoder_dtype=cfg.encoder_dtype,
-        encoder_stage_sizes=_stage_sizes(cfg),
-        encoder_depth=cfg.encoder_depth,
-        device=device,
-        seed=seed,
-        remat_encoder=cfg.remat_encoder,
-    )
+    hmr = HMR.from_config(smpl, cfg, device=device, seed=seed, remat_encoder=cfg.remat_encoder)
     critic = Critic()
     critic.reset_parameters(torch.Generator().manual_seed(seed + 1))
     critic.to(hmr.device)

@@ -32,6 +32,9 @@ stage):
                         (models/encoder_graph.py; the backward replays
                         inside gen.backward)
           model.ief     per stage, the IEF regressor
+          model.head    per iteration, HMR 2.0's transformer-decoder head
+                        and its 6D-to-matrix map, in place of model.ief
+                        (the encoder is then the ViT)
           model.smpl    per stage, the body model and the projection
         gen.losses      the per-stage losses
           chamfer.k2    each silhouette chamfer with its gradient (K2)

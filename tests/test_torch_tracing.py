@@ -38,6 +38,9 @@ TREE = {
     "critic.backward": ("step", 1), "critic.adam": ("step", 1), "step.metrics": ("step", 1),
     "loop.fetch": ("loop.iter", 1), "loop.log": ("loop.iter", 1),
 }
+# documented spans of another model's path: HMR 2.0's head in place of
+# model.ief (tests/test_torch_hmr2.py counts them)
+OTHER_PATHS = {"model.head"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -123,7 +126,7 @@ def test_the_documented_spans_nest_and_count_per_step(runs):
     names = [s.name for s in spans]
     assert set(names) == set(TREE)
     # the module's table of names, which is the operators' reference
-    assert set(re.findall(r"^ {4,}([a-z]+\.[a-z0-9]+|step) ", tracing.__doc__, re.M)) == set(TREE)
+    assert set(re.findall(r"^ {4,}([a-z]+\.[a-z0-9]+|step) ", tracing.__doc__, re.M)) == set(TREE) | OTHER_PATHS
     for name, (parent, per_step) in TREE.items():
         assert names.count(name) == per_step * STEPS, name
     for s in spans:
