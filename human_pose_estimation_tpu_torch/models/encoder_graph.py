@@ -3,9 +3,11 @@ pair.
 
 A training step's ResNet-50 launches some 3400 kernels for its forward and
 its parameters' backward, one Python call at a time, for a few ms of device
-work: the host sets the step's pace. ``encode(hmr, images)`` captures the
-two passes once per input signature (``torch.cuda.CUDAGraph``, in the
-manner of ``torch.cuda.make_graphed_callables``) and replays them behind one
+work, and ViT-H some 3600 for ~100 ms: the host sets the step's pace, or
+paces the encoder while the rest of the step waits behind it.
+``encode(hmr, images, generator)`` captures the two passes once per input
+signature (``torch.cuda.CUDAGraph``, in the manner of
+``torch.cuda.make_graphed_callables``) and replays them behind one
 ``torch.autograd.Function``: the forward graph where the model runs, the
 backward graph when autograd reaches the features.
 
@@ -14,10 +16,21 @@ takes the graph pair only where it returns None (the int8 encoder, an
 inference path, branches off before): the encoder in train mode under
 grad mode, every encoder parameter and not the images needing a
 gradient, no rematerialisation (its recompute belongs to the eager
-backward), an encoder that draws no random numbers (the ViT's stochastic
-depth draws from the step's generator, which a replay would not advance),
-no process group (the BatchNorm moments' all-reduce cannot sit in a graph)
-and a CUDA input. Everything else runs the encoder eagerly, as before.
+backward), an encoder that draws no random numbers in its forward, no
+process group (the BatchNorm moments' all-reduce, and ``draw_rows``'s
+rows, cannot sit in a graph) and a CUDA input. Everything else runs the
+encoder eagerly, as before.
+
+An encoder that draws random numbers (``draws_random``) passes only where
+it draws them up front: a ``draw_masks(n, generator)`` hook whose result
+its ``forward(images, masks)`` applies (the ViT's stochastic depth,
+``models/vit.py``). ``encode`` then draws the step's masks eagerly from the
+step's generator, in the eager forward's order and with its calls, so the
+generator ends where eager leaves it; copies them into the capture's static
+mask buffer beside the static images; and replays. Capture's warm-up passes
+and the capture itself run on a throwaway mask of ones and never touch the
+step's generator. An encoder without the hook (the ResNet) has no mask
+buffer: its key, replay and launches are as without the rule.
 
 What keeps the replay exact:
 
@@ -79,8 +92,9 @@ def bypass(hmr, images: torch.Tensor) -> Optional[str]:
     """Why ``hmr``'s encoder runs eagerly on ``images``, or None where the
     graph pair takes the call. The rules, in order: eval mode, no grad
     mode, ``remat_encoder``, an encoder that draws random numbers in its
-    forward (the ViT's stochastic depth), a process group, gradients other
-    than every encoder parameter's, a device other than CUDA."""
+    forward (``draws_random`` without a ``draw_masks`` hook that draws them
+    up front), a process group, gradients other than every encoder
+    parameter's, a device other than CUDA."""
     encoder = hmr.encoder
     if not encoder.training:
         return "eval mode"
@@ -88,7 +102,7 @@ def bypass(hmr, images: torch.Tensor) -> Optional[str]:
         return "no grad mode"
     if hmr.remat_encoder:
         return "remat_encoder"
-    if getattr(encoder, "draws_random", False):
+    if getattr(encoder, "draws_random", False) and not hasattr(encoder, "draw_masks"):
         return "random numbers in the forward"
     if pmesh.is_distributed():
         return "process group"
@@ -111,18 +125,21 @@ def signature(hmr, images: torch.Tensor, params=None, buffers=None) -> tuple:
 
 
 class _Pair:
-    """One signature's forward and backward graphs and their static buffers."""
+    """One signature's forward and backward graphs and their static buffers:
+    the images, and the masks where the encoder takes them (``masks``, the
+    step's, gives their shape; the capture runs on ones)."""
 
-    def __init__(self, hmr, images: torch.Tensor, params, buffers):
+    def __init__(self, hmr, images: torch.Tensor, params, buffers, masks: Optional[torch.Tensor] = None):
         global CAPTURES
         encoder = hmr.encoder
         enabled = hmr.encoder_dtype == torch.bfloat16
         # the captured storage, kept alive with the graphs
         self.params, self.buffers = params, buffers
+        self.masks = None if masks is None else torch.ones_like(masks)
 
         def run(x):
             with torch.autocast("cuda", dtype=torch.bfloat16, enabled=enabled, cache_enabled=False):
-                return encoder(x)
+                return encoder(x) if self.masks is None else encoder(x, self.masks)
 
         dev = images.device
         saved = [b.detach().clone() for b in self.buffers]
@@ -177,20 +194,27 @@ class _Replay(torch.autograd.Function):
         return (None, None, *pair.grads)
 
 
-def encode(hmr, images: torch.Tensor) -> torch.Tensor:
+def encode(hmr, images: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """``hmr``'s train-mode encoder on ``images`` ((N, H, W, 3) on a CUDA
-    device) by its graph pair, captured on the signature's first call: (N,
-    feature_dim) f32 features, differentiable in the encoder's parameters.
-    Call only where ``bypass`` returns None."""
-    params, buffers = _tensors(hmr.encoder)
+    device) by its graph pair, captured on the signature's first call: its
+    f32 features ((N, feature_dim) from the ResNet, (N, tokens, width) from
+    the ViT), differentiable in the encoder's parameters. An encoder with a
+    ``draw_masks`` hook has its masks drawn from ``generator`` first, as its
+    eager forward would. Call only where ``bypass`` returns None."""
+    encoder = hmr.encoder
+    draw = getattr(encoder, "draw_masks", None)
+    masks = None if draw is None else draw(images.shape[0], generator)
+    params, buffers = _tensors(encoder)
     key = signature(hmr, images, params, buffers)
-    pairs = _pairs.setdefault(hmr.encoder, {})
+    pairs = _pairs.setdefault(encoder, {})
     pair = pairs.get(key)
     if pair is None:
         for old in [k for k in pairs if k[-1] != key[-1]]:
             del pairs[old]  # captured on storage the encoder no longer holds
-        pair = pairs[key] = _Pair(hmr, images, params, buffers)
+        pair = pairs[key] = _Pair(hmr, images, params, buffers, masks)
     with span("model.encoder.graph"):
+        if masks is not None:
+            pair.masks.copy_(masks)
         # the module's own parameters, which may be new objects on the
         # captured storage: autograd hands their gradients to them
         return _Replay.apply(pair, images, *params)

@@ -41,10 +41,12 @@ encoder_qparams=...)`` runs it in eval mode in place of the float encoder;
 the regressor and the body model run as in the float path.
 
 HMR 2.0's pair: the ViT sees the middle 3/4 of the columns of each square
-crop; its train-mode forward draws its stochastic-depth masks from the
-``generator`` (``models/vit.py`` gives the order), so it always runs
-eagerly (``models/encoder_graph.py``'s rule); ``remat_encoder`` and the
-int8 encoder are the ResNet's and refuse it. The head runs ``num_stage``
+crop; in train mode its stochastic-depth masks are drawn from the
+``generator`` before its forward (``ViT.draw_masks``, whose docstring and
+``models/vit.py``'s give the order) and handed to it, eagerly or into the
+encoder's CUDA graph pair, which takes it under the ResNet's rules
+(``models/encoder_graph.py``); ``remat_encoder`` and the int8 encoder are
+the ResNet's and refuse it. The head runs ``num_stage``
 iterations (HMR 2.0's ``IEF_ITERS``), each from the same zero token,
 refining the estimate from the mean theta's 6D form; a stage's ``theta``
 and ``pose`` are then [cam 3 | 6D pose 144 | shape 10] and the 6D pose,
@@ -254,7 +256,7 @@ class HMR(nn.Module):
     def _encode(self, images: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         with self._autocast():
             if self.backbone == "vit_h":
-                return self.encoder(images, generator)
+                return self.encoder(images, self.encoder.draw_masks(images.shape[0], generator))
             return self.encoder(images)
 
     def forward(
@@ -293,7 +295,7 @@ class HMR(nn.Module):
                     context_fn=lambda: (contextlib.nullcontext(), self._recompute_context()),
                 )
             elif encoder_graph.bypass(self, images) is None:
-                features = encoder_graph.encode(self, images)
+                features = encoder_graph.encode(self, images, generator)
             else:
                 features = self._encode(images, generator)
         if self.head_type == "transformer":

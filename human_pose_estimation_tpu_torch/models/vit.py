@@ -26,12 +26,16 @@ Stochastic depth (``dp``, train mode only): block i drops its two residual
 branches at the rate ``linspace(0, 0.55, depth)[i]`` (ViT-H's
 ``drop_path_rate`` in HMR 2.0), per sample:
 a row is kept where ``floor(keep + u) == 1`` for one uniform u, and a kept
-row is scaled by 1 / keep (timm's ``drop_path``). The uniforms come from the
-caller's ``torch.Generator`` in a fixed order: blocks in order, in each the
-attention branch's (N,) then the MLP branch's (N,), f32 on the tensors'
-device; a block at rate 0 draws nothing. Under a process group they are
-drawn for the global batch and each rank keeps its rows
-(``parallel.mesh.draw_rows``).
+row is scaled by 1 / keep (timm's ``drop_path``: ``x / keep * mask``).
+The masks are drawn before the forward, by ``ViT.draw_masks(n, generator)``,
+and handed to it (``ViT.forward(images, masks)``): one code path, eager or
+replayed from the encoder's CUDA graph pair (``models/encoder_graph.py``),
+which copies them into its capture's static buffer. The uniforms come from
+the caller's ``torch.Generator`` in a fixed order: blocks in order, in each
+the attention branch's (N,) then the MLP branch's (N,), f32 on the
+generator's device, one ``torch.rand`` call each; a block at rate 0 draws
+nothing. Under a process group they are drawn for the global batch and each
+rank keeps its rows (``parallel.mesh.draw_rows``).
 """
 from __future__ import annotations
 
@@ -66,16 +70,11 @@ def crop_columns(img_size: int):
     return (img_size - width) // 2, width
 
 
-def drop_path(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """timm's ``drop_path`` on (N, ...) rows with one uniform per row from
-    ``generator``."""
-    if rate == 0.0:
+def drop_path(x: torch.Tensor, keep: float, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """timm's ``drop_path`` on (N, ...) rows with the (N,) 0 / 1 ``mask``
+    of ``ViT.draw_masks``; ``x`` itself where ``mask`` is None."""
+    if mask is None:
         return x
-    if generator is None:
-        raise ValueError("train-mode stochastic depth needs a torch.Generator")
-    keep = 1.0 - rate
-    draw = lambda shape: torch.rand(shape, generator=generator, device=x.device)  # noqa: E731
-    mask = torch.floor(keep + pmesh.draw_rows(draw, (x.shape[0],)))
     return x / keep * mask.to(x.dtype).reshape(-1, *([1] * (x.dim() - 1)))
 
 
@@ -118,17 +117,20 @@ class Block(nn.Module):
         self.norm2 = nn.LayerNorm(shape.width, eps=LN_EPS)
         self.mlp = Mlp(shape.width, shape.mlp)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        rate = self.rate if self.training else 0.0
-        x = x + drop_path(self.attn(self.norm1(x)), rate, generator)
-        return x + drop_path(self.mlp(self.norm2(x)), rate, generator)
+    def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None,
+                mlp_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        keep = 1.0 - self.rate
+        x = x + drop_path(self.attn(self.norm1(x)), keep, attn_mask)
+        return x + drop_path(self.mlp(self.norm2(x)), keep, mlp_mask)
 
 
 class ViT(nn.Module):
     """ViTPose's ViT on (N, S, S, 3) crops -> (N, tokens, width)."""
 
-    # the train-mode forward draws random numbers (stochastic depth), which
-    # keeps it out of the encoder's CUDA graph pair (models/encoder_graph.py)
+    # the train-mode forward applies random masks (stochastic depth), drawn
+    # up front by draw_masks: the encoder's CUDA graph pair
+    # (models/encoder_graph.py) takes an encoder that draws random numbers
+    # only where it has that hook
     draws_random = True
 
     def __init__(self, img_size: int = 256, shape: ViTShape = VIT_H):
@@ -167,13 +169,39 @@ class ViT(nn.Module):
         nn.init.trunc_normal_(conv.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
         nn.init.zeros_(conv.bias)
 
-    def forward(self, images: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def _dropping(self):
+        """The blocks whose branches the train-mode forward drops, in order."""
+        return [b for b in self.blocks if b.rate != 0.0] if self.training else []
+
+    def draw_masks(self, n: int, generator: Optional[torch.Generator]) -> Optional[torch.Tensor]:
+        """The train-mode forward's stochastic-depth masks for ``n`` rows,
+        drawn from ``generator`` in the order the module docstring gives:
+        (2 x the blocks at a rate above 0, n) f32 0 / 1 on the generator's
+        device, the attention branch's row then the MLP branch's, block by
+        block. None in eval mode, or where no block drops."""
+        blocks = self._dropping()
+        if not blocks:
+            return None
+        if generator is None:
+            raise ValueError("train-mode stochastic depth needs a torch.Generator")
+        draw = lambda shape: torch.rand(shape, generator=generator, device=generator.device)  # noqa: E731
+        return torch.stack([torch.floor((1.0 - b.rate) + pmesh.draw_rows(draw, (n,)))
+                            for b in blocks for _branch in ("attn", "mlp")])
+
+    def forward(self, images: torch.Tensor, masks: Optional[torch.Tensor] = None) -> torch.Tensor:
         """images (N, S, S, 3) in [-1, 1] -> tokens (N, tokens, width); in
-        train mode ``generator`` (on the images' device) draws the
-        stochastic-depth masks."""
+        train mode ``masks`` are ``draw_masks(N, generator)``'s."""
+        dropping = self._dropping()
+        if dropping and (masks is None or masks.shape != (2 * len(dropping), images.shape[0])):
+            raise ValueError("train-mode stochastic depth needs the masks of draw_masks(N, generator)")
         x = images[:, :, self.col0 : images.shape[2] - self.col0].permute(0, 3, 1, 2)
         x = self.patch_embed.proj(x).flatten(2).transpose(1, 2)
         x = x + self.pos_embed[:, 1:] + self.pos_embed[:, :1]
+        row = 0
         for block in self.blocks:
-            x = block(x, generator)
+            if dropping and block.rate != 0.0:
+                x = block(x, masks[row], masks[row + 1])
+                row += 2
+            else:
+                x = block(x)
         return self.last_norm(x)

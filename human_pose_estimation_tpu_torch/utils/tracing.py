@@ -27,7 +27,8 @@ stage):
                         silhouettes extracted (DevicePreprocessor)
         step.mocap      the mocap copied and posed by the body model
         gen.forward     the HMR forward
-          model.encoder the ResNet encoder
+          model.encoder the encoder, ResNet or ViT (the ViT's
+                        stochastic-depth masks drawn here first)
             model.encoder.graph  its forward replayed as a CUDA graph
                         (models/encoder_graph.py; the backward replays
                         inside gen.backward)

@@ -14,8 +14,12 @@ On a card (``cuda``): the graphed forward and every parameter gradient
 against eager ResNet-50 at batch 8 and 32; capture leaves every parameter
 and buffer as it found it; ``.backward()`` accumulates as eager does;
 three fused training steps graphed against eager; and a restored
-checkpoint or rebound weights recapture. The file imports nothing of
-JAX, so it runs on the card's machine as it is.
+checkpoint or rebound weights recapture. The same for a small ViT with
+stochastic depth (heads of 80 over ViT-H's 192 tokens, masks drawn up
+front from the step's generator): features, gradients and the generator's
+state against eager, capture leaving the parameters and the generators as
+it found them, three fused HMR 2.0 steps, and rebound weights. The file
+imports nothing of JAX, so it runs on the card's machine as it is.
 """
 import contextlib
 import copy
@@ -29,6 +33,8 @@ from torch.profiler import ProfilerActivity, profile
 from human_pose_estimation_tpu_torch.config import Config
 from human_pose_estimation_tpu_torch.models import encoder_graph
 from human_pose_estimation_tpu_torch.models.hmr import HMR
+from human_pose_estimation_tpu_torch.models.transformer_head import HeadShape
+from human_pose_estimation_tpu_torch.models.vit import ViTShape
 from human_pose_estimation_tpu_torch.parallel import mesh as pmesh
 from human_pose_estimation_tpu_torch.train.step import HostBatch
 from human_pose_estimation_tpu_torch.train.trainer import Trainer
@@ -114,6 +120,14 @@ def _cpu(hmr, images, monkeypatch):
     return {}, contextlib.nullcontext()
 
 
+def _draws_in_forward(hmr, images, monkeypatch):
+    # an encoder that declares random draws in its forward and no
+    # ``draw_masks`` hook that draws them up front
+    hmr.train()
+    hmr.encoder.draws_random = True
+    return {}, contextlib.nullcontext()
+
+
 # case: (set-up, the reason ``bypass`` gives); the int8 encoder is an
 # eval-mode path that ``HMR.forward`` branches to before the rules
 RULES = {
@@ -124,6 +138,7 @@ RULES = {
     "process_group": (_process_group, "process group"),
     "frozen": (_frozen, "gradients other than the parameters'"),
     "cpu": (_cpu, "not on a CUDA device"),
+    "draws_in_forward": (_draws_in_forward, "random numbers in the forward"),
 }
 
 
@@ -151,17 +166,18 @@ def test_a_call_that_passes_the_rules_takes_the_graph_pair(monkeypatch):
     ``encode`` inside ``model.encoder``."""
     hmr, images = _hmr(), _images()
     hmr.train()
-    calls = []
+    calls, generators = [], []
 
-    def encode(h, x):
+    def encode(h, x, generator=None):
         calls.append(x)
+        generators.append(generator)
         with tracing.span("model.encoder.graph"):
             return h._encode(x)
 
     monkeypatch.setattr(encoder_graph, "bypass", lambda h, x: None)
     monkeypatch.setattr(encoder_graph, "encode", encode)
     names, _ = _forward_spans(hmr, images)
-    assert len(calls) == 1 and calls[0] is images
+    assert len(calls) == 1 and calls[0] is images and isinstance(generators[0], torch.Generator)
     assert names.index("model.encoder") < names.index("model.encoder.graph")
     assert names.count("model.encoder.graph") == 1
 
@@ -335,14 +351,15 @@ def _feeds(seed=3, n=4):
     return cycle([(b, BATCH) for b in batches]), cycle(mocap)
 
 
-def _fused_trainer(dev, checkpoint_dir, skip=0):
+def _fused_trainer(dev, checkpoint_dir, skip=0, **model):
     """A fused-path ``Trainer`` on ``dev`` whose input streams start at
-    their ``skip``-th batch."""
+    their ``skip``-th batch; ``model``: ``Config``'s model keys (the
+    shallow ResNet where none are given)."""
     cfg = Config(
         img_size=IMG, batch_size=BATCH, encoder_stage_sizes="1,1,1,1", encoder_dtype="bfloat16",
         use_mesh_repro_loss=True, mr_metric_stages="all", max_silhouette_points=512, trans_max=8,
         fuse_preprocess=True, use_validation=False, log_img_step=0, model_dir=None,
-        num_examples_override=1000, datasets=["lsp"], checkpoint_dir=checkpoint_dir,
+        num_examples_override=1000, datasets=["lsp"], checkpoint_dir=checkpoint_dir, **model,
     )
     data, mocap = _feeds()
     for _ in range(skip):
@@ -421,3 +438,140 @@ def test_a_restored_checkpoint_and_rebound_weights_recapture(tmp_path):
     f = encoder_graph.encode(hmr, x)
     assert encoder_graph.CAPTURES == captures + 2
     assert _rel(f, eager._encode(x)) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# the ViT on the card: masks drawn up front
+
+VIT = ViTShape(depth=4, width=160, heads=2, mlp=640)  # heads of 80, as ViT-H's; rates 0 to 0.55
+VIT_IMG = 256  # ViT-H's 16 x 12 = 192 tokens
+HEAD = HeadShape(depth=2, width=64, heads=4, dim_head=16, mlp=64)
+VIT_CONFIG = {"backbone": "vit_h", "head": "transformer", "vit_shape": ",".join(map(str, VIT)),
+              "head_shape": ",".join(map(str, HEAD))}
+
+
+def _vit_hmr(device):
+    return HMR(synthetic_model(num_verts=120, seed=0), backbone="vit_h", head="transformer", img_size=VIT_IMG,
+               vit_shape=VIT, head_shape=HEAD, encoder_dtype="bfloat16", device=device, seed=1)
+
+
+def _step_gen(dev, seed=7):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def _assert_within_eager(gaps: dict) -> None:
+    """Each graph-eager gap no larger than the eager-eager gap of the same
+    quantity: bit-equal where eager repeats itself bit for bit."""
+    for k, (graph_gap, eager_gap) in gaps.items():
+        assert graph_gap <= eager_gap, (k, graph_gap, eager_gap)
+
+
+@pytest.mark.cuda
+def test_graphed_forward_and_gradients_match_eager_vit():
+    """The ViT in bf16, train mode, stochastic depth from the step's
+    generator: the graph pair's features and parameter gradients against
+    eager on copies of the same weights with generators of the same seed,
+    over three calls (the capturing one and two replays), each gap within
+    that of two eager runs; the generators end in the same state."""
+    dev = _card()
+    graphed = _vit_hmr(dev)
+    eager = copy.deepcopy(graphed)
+    again = copy.deepcopy(graphed)
+    models = {"graphed": graphed, "eager": eager, "again": again}
+    gens = {name: _step_gen(dev) for name in models}
+    for m in models.values():
+        m.train()
+    captures = encoder_graph.CAPTURES
+    for call in range(3):
+        x = _images(8, VIT_IMG, dev, seed=call)
+        assert encoder_graph.bypass(graphed, x) is None
+        g_out = torch.randn(8, graphed.encoder.num_tokens, VIT.width, generator=torch.Generator().manual_seed(call))
+        outs = {}
+        for name, m in models.items():
+            params = list(m.encoder.parameters())
+            f = encoder_graph.encode(m, x, gens[name]) if name == "graphed" else m._encode(x, gens[name])
+            outs[name] = (f.detach(), torch.autograd.grad(f, params, g_out.to(dev)))
+        (fg, gg), (fe, ge), (fa, ga) = outs["graphed"], outs["eager"], outs["again"]
+        gaps = {"features": (_rel(fg, fe), _rel(fa, fe)),
+                "gradient": (max(_rel(a, b) for a, b in zip(gg, ge)), max(_rel(a, b) for a, b in zip(ga, ge)))}
+        print(f"ViT call {call}: graph-eager | eager-eager", gaps)
+        _assert_within_eager(gaps)
+    assert encoder_graph.CAPTURES == captures + 1
+    state = gens["eager"].get_state()
+    assert torch.equal(gens["graphed"].get_state(), state) and torch.equal(gens["again"].get_state(), state)
+
+
+@pytest.mark.cuda
+def test_vit_capture_leaves_parameters_and_generators_as_it_found_them():
+    """Capture runs on a throwaway mask: the step's generator, the card's
+    default generator and the parameters are as before it; the first
+    replay on the step's masks gives eager's features on them."""
+    dev = _card()
+    hmr = _vit_hmr(dev)
+    hmr.train()
+    x = _images(4, VIT_IMG, dev)
+    gen = _step_gen(dev)
+    masks = hmr.encoder.draw_masks(4, gen)
+    assert masks.shape == (6, 4)  # three blocks drop, two branches each
+    step_state, default_state = gen.get_state(), torch.cuda.get_rng_state(dev)
+    before = {k: v.clone() for k, v in hmr.encoder.state_dict().items()}
+    params, buffers = encoder_graph._tensors(hmr.encoder)
+    pair = encoder_graph._Pair(hmr, x, params, buffers, masks)
+    assert torch.equal(gen.get_state(), step_state)
+    assert torch.equal(torch.cuda.get_rng_state(dev), default_state)
+    for k, v in hmr.encoder.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    assert torch.equal(pair.masks, torch.ones_like(masks))
+    pair.masks.copy_(masks)
+    f = encoder_graph._Replay.apply(pair, x, *params)
+    with hmr._autocast():
+        want = hmr.encoder(x, masks)
+    assert _rel(f, want) == 0.0
+
+
+@pytest.mark.cuda
+def test_three_fused_hmr2_steps_graphed_match_eager(monkeypatch, tmp_path):
+    """Three fused HMR 2.0 training steps through the graph pair against
+    two eager runs: each metric and each leaf no further from the first
+    eager run than the second eager run is."""
+    dev = _card()
+    runs = {}
+    for name in ("graphed", "eager", "again"):
+        with monkeypatch.context() as m:
+            if name != "graphed":
+                m.setattr(encoder_graph, "bypass", lambda *a, **k: "eager for the comparison")
+            replays = encoder_graph.REPLAYS
+            t, got = _fused_trainer(dev, str(tmp_path / name), **VIT_CONFIG)
+            t.train(max_steps=3)
+            assert encoder_graph.REPLAYS - replays == (3 if name == "graphed" else 0)
+            runs[name] = (got, _leaves(t))
+    (mg, lg), (me, le), (ma, la) = runs["graphed"], runs["eager"], runs["again"]
+    gaps = {"metrics": [0.0, 0.0], "leaves": [0.0, 0.0]}
+    for a, b, c in zip(mg, me, ma):
+        for k in b:
+            gaps["metrics"] = [max(gaps["metrics"][0], _rel(a[k], b[k])), max(gaps["metrics"][1], _rel(c[k], b[k]))]
+    for a, b, c in zip(lg, le, la):
+        gaps["leaves"] = [max(gaps["leaves"][0], _rel(a.float(), b.float())),
+                          max(gaps["leaves"][1], _rel(c.float(), b.float()))]
+    print("HMR 2.0 steps: graph-eager | eager-eager", gaps)
+    _assert_within_eager(gaps)
+
+
+@pytest.mark.cuda
+def test_rebound_vit_weights_recapture():
+    dev = _card()
+    hmr = _vit_hmr(dev)
+    hmr.train()
+    x = _images(4, VIT_IMG, dev)
+    captures = encoder_graph.CAPTURES
+    encoder_graph.encode(hmr, x, _step_gen(dev))
+    encoder_graph.encode(hmr, x, _step_gen(dev))
+    assert encoder_graph.CAPTURES == captures + 1
+    sd = {k: v.clone() for k, v in hmr.state_dict().items()}
+    before = encoder_graph.signature(hmr, x)
+    hmr.load_state_dict(sd, assign=True)
+    assert encoder_graph.signature(hmr, x) != before
+    eager = copy.deepcopy(hmr)
+    f = encoder_graph.encode(hmr, x, _step_gen(dev, 8))
+    assert encoder_graph.CAPTURES == captures + 2
+    assert _rel(f, eager._encode(x, _step_gen(dev, 8))) == 0.0

@@ -24,6 +24,7 @@ from human_pose_estimation_tpu_torch.data.pipeline import DevicePreprocessor
 from human_pose_estimation_tpu_torch.infer.predictor import Predictor
 from human_pose_estimation_tpu_torch.models import encoder_graph
 from human_pose_estimation_tpu_torch.models.hmr import HMR
+from human_pose_estimation_tpu_torch.models.vit import ViT, ViTShape
 from human_pose_estimation_tpu_torch.train import step as tstep
 from human_pose_estimation_tpu_torch.train.state import create_train_state, step_generator
 from human_pose_estimation_tpu_torch.train.trainer import Trainer
@@ -83,7 +84,7 @@ def test_vit_features_match_the_reference(tiny, train):
     hmr.train(train)
     p = {k: v.to(F64) for k, v in hmr_sd.items()}
     x = _images()
-    got = hmr.encoder(x, torch.Generator().manual_seed(5))
+    got = hmr.encoder(x, hmr.encoder.draw_masks(2, torch.Generator().manual_seed(5)))
     want = ref.vit(x, p, cfg, train, torch.Generator().manual_seed(5))
     assert got.shape == (2, 12, 64)
     torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10)
@@ -234,10 +235,65 @@ def test_spans_of_the_model(tiny):
 def test_the_encoder_graph_remat_and_int8_leave_the_vit_alone(tiny):
     hmr = _hmr(tiny, torch.float32)
     hmr.train()
-    assert encoder_graph.bypass(hmr, _images().float()) == "random numbers in the forward"
+    # the ViT draws its masks up front, so only the device keeps it eager here
+    assert encoder_graph.bypass(hmr, _images().float()) == "not on a CUDA device"
     with pytest.raises(ValueError, match="int8"):
         hmr.quantize_encoder()
     with pytest.raises(ValueError, match="remat_encoder"):
         HMR.from_config(hmr.smpl, tiny[1], device="cpu", remat_encoder=True)
     with pytest.raises(ValueError, match="backbone, head"):
         HMR.from_config(hmr.smpl, Config(backbone="vit_h", head="ief"), device="cpu")
+
+
+def _per_block_forward(vit: ViT, images: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """The ViT's train-mode forward with its masks drawn block by block,
+    inside the forward, as the model drew them before ``draw_masks``: one
+    (N,) uniform per branch at a rate above 0, ``floor(keep + u)``, then
+    ``x / keep * mask``."""
+    def drop(x, rate):
+        if rate == 0.0:
+            return x
+        keep = 1.0 - rate
+        mask = torch.floor(keep + torch.rand((x.shape[0],), generator=generator, device=x.device))
+        return x / keep * mask.to(x.dtype).reshape(-1, 1, 1)
+
+    x = images[:, :, vit.col0 : images.shape[2] - vit.col0].permute(0, 3, 1, 2)
+    x = vit.patch_embed.proj(x).flatten(2).transpose(1, 2)
+    x = x + vit.pos_embed[:, 1:] + vit.pos_embed[:, :1]
+    for b in vit.blocks:
+        x = x + drop(b.attn(b.norm1(x)), b.rate)
+        x = x + drop(b.mlp(b.norm2(x)), b.rate)
+    return vit.last_norm(x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64], ids=["f32", "f64"])
+def test_masks_drawn_up_front_equal_the_per_block_draws(dtype):
+    """A ViT of depth 4 (rates 0, 0.18, 0.37, 0.55): the masks that
+    ``draw_masks`` draws and the forward applies give the outputs and every
+    parameter gradient of the per-block draws bit for bit, from the same
+    seeded generator, which then draws the same next numbers."""
+    vit = ViT(64, ViTShape(depth=4, width=32, heads=2, mlp=64)).to(dtype)
+    vit.reset_parameters(torch.Generator().manual_seed(3))
+    vit.train()
+    n = 8
+    x = _images(n).to(dtype)
+    up_front, per_block = torch.Generator().manual_seed(9), torch.Generator().manual_seed(9)
+    masks = vit.draw_masks(n, up_front)
+    assert masks.shape == (6, n) and masks.dtype == torch.float32
+    assert set(masks.unique().tolist()) == {0.0, 1.0}  # rows dropped and rows kept
+    got, want = vit(x, masks), _per_block_forward(vit, x, per_block)
+    assert torch.equal(got, want)
+    w = torch.randn(got.shape, generator=torch.Generator().manual_seed(4), dtype=dtype)
+    params = list(vit.parameters())
+    for a, b in zip(torch.autograd.grad((got * w).sum(), params), torch.autograd.grad((want * w).sum(), params)):
+        assert torch.equal(a, b)
+    assert torch.equal(torch.rand(5, generator=up_front), torch.rand(5, generator=per_block))
+    with pytest.raises(ValueError, match="draw_masks"):
+        vit(x)
+    with pytest.raises(ValueError, match="draw_masks"):
+        vit(x, masks[:4])
+    # eval mode draws nothing and applies no mask
+    vit.eval()
+    state = up_front.get_state()
+    assert vit.draw_masks(n, up_front) is None and torch.equal(up_front.get_state(), state)
+    assert torch.isfinite(vit(x)).all()
