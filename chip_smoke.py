@@ -2219,7 +2219,7 @@ def phase_int8(torch, card, smpl, mean_theta):
     with torch.inference_mode():
         feat_f32 = f32.encoder(x)
         feat_i8 = q.resnet_apply_int8(qp["weights"], x, stages, act_scales=qp["act"])
-        feat_bf16 = bf16.hmr._encode(x)
+        feat_bf16 = bf16.hmr._encode(x, None)
     rel_f32, rel_bf16 = _rel_l2(torch, feat_i8, feat_f32), _rel_l2(torch, feat_bf16, feat_f32)
     if not rel_f32 <= 0.03:
         raise AssertionError(f"int8 features are {rel_f32:.4f} from the f32 encoder's (relative L2; limit 0.03)")
@@ -2239,7 +2239,7 @@ def phase_int8(torch, card, smpl, mean_theta):
             torch, q, lambda: q.resnet_apply_int8(qp["weights"], x, stages, act_scales=qp["act"])
         )
     with torch.inference_mode():
-        enc_bf16_ms, enc_bf16_launches = _profiled_device_ms(torch, lambda: bf16.hmr._encode(x), calls=3)
+        enc_bf16_ms, enc_bf16_launches = _profiled_device_ms(torch, lambda: bf16.hmr._encode(x, None), calls=3)
 
     # lazy calibration from a padded first batch, and the export refusal
     lazy = Predictor(cfg, smpl=smpl, variables=weights, mean_theta=mean_theta, encoder_int8=True)
@@ -2339,7 +2339,7 @@ def phase_int8_eval(torch, cc, card, smpl, mean_theta, num_batches=6):
     with torch.no_grad():
         x = batches[1].images
         rel_feat = _rel_l2(torch, q.resnet_apply_int8(qp["weights"], x, hmr.encoder.stage_sizes, act_scales=qp["act"]),
-                           hmr._encode(x))
+                           hmr._encode(x, None))
 
     # validate_checkpoint with encoder_int8 on [trainer]'s checkpoint
     ckdir = os.path.join(SMOKE_DIR, "trainer", "straight")

@@ -5,7 +5,7 @@ A training step's ResNet-50 launches some 3400 kernels for its forward and
 its parameters' backward, one Python call at a time, for a few ms of device
 work, and ViT-H some 3600 for ~100 ms: the host sets the step's pace, or
 paces the encoder while the rest of the step waits behind it.
-``encode(hmr, images, generator)`` captures the two passes once per input
+``encode(hmr, images, masks)`` captures the two passes once per input
 signature (``torch.cuda.CUDAGraph``, in the manner of
 ``torch.cuda.make_graphed_callables``) and replays them behind one
 ``torch.autograd.Function``: the forward graph where the model runs, the
@@ -16,21 +16,16 @@ takes the graph pair only where it returns None (the int8 encoder, an
 inference path, branches off before): the encoder in train mode under
 grad mode, every encoder parameter and not the images needing a
 gradient, no rematerialisation (its recompute belongs to the eager
-backward), an encoder that draws no random numbers in its forward, no
-process group (the BatchNorm moments' all-reduce, and ``draw_rows``'s
-rows, cannot sit in a graph) and a CUDA input. Everything else runs the
-encoder eagerly, as before.
+backward), no process group (the BatchNorm moments' all-reduce, and
+``draw_rows``'s rows, cannot sit in a graph) and a CUDA input. Everything
+else runs the encoder eagerly, as before.
 
-An encoder that draws random numbers (``draws_random``) passes only where
-it draws them up front: a ``draw_masks(n, generator)`` hook whose result
-its ``forward(images, masks)`` applies (the ViT's stochastic depth,
-``models/vit.py``). ``encode`` then draws the step's masks eagerly from the
-step's generator, in the eager forward's order and with its calls, so the
-generator ends where eager leaves it; copies them into the capture's static
-mask buffer beside the static images; and replays. Capture's warm-up passes
-and the capture itself run on a throwaway mask of ones and never touch the
-step's generator. An encoder without the hook (the ResNet) has no mask
-buffer: its key, replay and launches are as without the rule.
+Every encoder draws its random numbers before its forward
+(``draw_masks``, called by ``HMR.forward``), so none are drawn in a
+replay: ``encode`` copies the step's masks (the ViT's stochastic depth)
+into the capture's static mask buffer beside the static images. Capture's
+warm-up passes and the capture itself run on a throwaway mask of ones.
+Masks of None (the ResNet's) have no buffer.
 
 What keeps the replay exact:
 
@@ -91,10 +86,8 @@ def _tensors(encoder):
 def bypass(hmr, images: torch.Tensor) -> Optional[str]:
     """Why ``hmr``'s encoder runs eagerly on ``images``, or None where the
     graph pair takes the call. The rules, in order: eval mode, no grad
-    mode, ``remat_encoder``, an encoder that draws random numbers in its
-    forward (``draws_random`` without a ``draw_masks`` hook that draws them
-    up front), a process group, gradients other than every encoder
-    parameter's, a device other than CUDA."""
+    mode, ``remat_encoder``, a process group, gradients other than every
+    encoder parameter's, a device other than CUDA."""
     encoder = hmr.encoder
     if not encoder.training:
         return "eval mode"
@@ -102,8 +95,6 @@ def bypass(hmr, images: torch.Tensor) -> Optional[str]:
         return "no grad mode"
     if hmr.remat_encoder:
         return "remat_encoder"
-    if getattr(encoder, "draws_random", False) and not hasattr(encoder, "draw_masks"):
-        return "random numbers in the forward"
     if pmesh.is_distributed():
         return "process group"
     if images.requires_grad or not all(p.requires_grad for p in _tensors(encoder)[0]):
@@ -139,7 +130,7 @@ class _Pair:
 
         def run(x):
             with torch.autocast("cuda", dtype=torch.bfloat16, enabled=enabled, cache_enabled=False):
-                return encoder(x) if self.masks is None else encoder(x, self.masks)
+                return encoder(x, self.masks)
 
         dev = images.device
         saved = [b.detach().clone() for b in self.buffers]
@@ -194,16 +185,14 @@ class _Replay(torch.autograd.Function):
         return (None, None, *pair.grads)
 
 
-def encode(hmr, images: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+def encode(hmr, images: torch.Tensor, masks: Optional[torch.Tensor]) -> torch.Tensor:
     """``hmr``'s train-mode encoder on ``images`` ((N, H, W, 3) on a CUDA
-    device) by its graph pair, captured on the signature's first call: its
-    f32 features ((N, feature_dim) from the ResNet, (N, tokens, width) from
-    the ViT), differentiable in the encoder's parameters. An encoder with a
-    ``draw_masks`` hook has its masks drawn from ``generator`` first, as its
-    eager forward would. Call only where ``bypass`` returns None."""
+    device) and the step's ``masks`` (``hmr.encoder.draw_masks``'s) by its
+    graph pair, captured on the signature's first call: its f32 features
+    ((N, feature_dim) from the ResNet, (N, tokens, width) from the ViT),
+    differentiable in the encoder's parameters. Call only where ``bypass``
+    returns None."""
     encoder = hmr.encoder
-    draw = getattr(encoder, "draw_masks", None)
-    masks = None if draw is None else draw(images.shape[0], generator)
     params, buffers = _tensors(encoder)
     key = signature(hmr, images, params, buffers)
     pairs = _pairs.setdefault(encoder, {})

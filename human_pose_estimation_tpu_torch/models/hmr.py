@@ -1,5 +1,6 @@
 """HMR: an encoder, a head that regresses SMPL parameters from its
-features, the body model and the weak-perspective projection. Two pairs:
+features, the body model and the weak-perspective projection. Two pairs,
+each built by its entry of ``FAMILIES``:
 
 * ``backbone='resnet'``, ``head='ief'``: the HMR of the JAX package, a
   ResNet encoder and iterative error feedback (IEF) over an axis-angle Θ;
@@ -7,7 +8,7 @@ features, the body model and the weak-perspective projection. Two pairs:
   al. 2023), the ViTPose-H backbone (``models/vit.py``) and the
   transformer-decoder head (``models/transformer_head.py``), which
   regresses 6D rotations; the body model then takes rotation matrices
-  (``core.smpl.smpl_forward(..., rotations=...)``), not axis-angle.
+  (``core.smpl``'s ``rotations``), not axis-angle.
 
 Counterpart of ``human_pose_estimation_tpu/models/hmr.py`` (the forward of
 ``HMR.__call__``). Kept from the reference:
@@ -17,46 +18,42 @@ Counterpart of ``human_pose_estimation_tpu/models/hmr.py`` (the forward of
 * ``smpl_stages='last'`` runs the body model on the final stage only
   (the serving path); ``'all'`` on every stage (evaluation).
 
-``encoder_dtype='bfloat16'`` runs the encoder and the regressor under
+The seam between ``HMR`` and what it composes: every encoder has
+``draw_masks(n, generator)``, the random numbers of its train-mode forward
+drawn up front (None where it draws none: the ResNet, any eval mode), and
+``forward(images, masks)``; every head has ``initial(mean_theta, n)``, its
+first estimate, and ``step``, one stage (the next estimate, the stage's
+theta, cam, pose and shape, and the pose the body model takes).
+``forward`` draws the masks, runs the encoder, then ``num_stage`` head
+steps, with the body model on the stages that ``smpl_stages`` asks for.
+
+``encoder_dtype='bfloat16'`` runs the encoder and the head's network under
 ``torch.autocast``; parameters, BN statistics and the body model stay
 f32. The module holds its parameters (as the Flax ``variables`` tree);
 the mean theta is passed to ``forward``, as the training state owns it.
 
-Train mode (``HMR.train()``, the JAX ``train=True``): the encoder
-normalises with batch statistics and updates its running buffers
-(``models/resnet.FlaxBatchNorm2d``), and dropout acts on the LAST IEF
-stage only (the reference quirk), with masks from the ``generator``
-passed to ``forward``. With ``remat_encoder`` the train-mode encoder
-keeps no activations for the backward and recomputes them there
-(``torch.utils.checkpoint``); the recompute leaves the BN running
-statistics alone, so that they are updated once per step, as JAX's
-``jax.checkpoint`` returns them once. Otherwise a train-mode encoder on the
-card under grad mode, with no process group, replays its forward and
-backward as one CUDA graph pair (``models/encoder_graph.py``, which names
-the rules); every other call runs it eagerly.
+Train mode (``HMR.train()``, the JAX ``train=True``): the ResNet
+normalises with batch statistics and updates its running buffers, the ViT
+drops blocks, and IEF's dropout acts on its LAST stage only (the reference
+quirk), each draw from the ``generator`` passed to ``forward``. With ``remat_encoder`` the
+train-mode ResNet keeps no activations for the backward and recomputes
+them there (``torch.utils.checkpoint``) under ``ResNet.recomputing``,
+which leaves the BN running statistics alone, so that they are updated
+once per step, as JAX's ``jax.checkpoint`` returns them once. Otherwise a
+train-mode encoder on the card under grad mode, with no process group,
+replays its forward and backward as one CUDA graph pair
+(``models/encoder_graph.py``, which names the rules); every other call
+runs it eagerly.
 
 The int8 serving encoder: ``HMR.quantize_encoder`` folds and quantizes the
-encoder's weights once (``models/quantize.py``), and ``forward(...,
-encoder_qparams=...)`` runs it in eval mode in place of the float encoder;
-the regressor and the body model run as in the float path.
-
-HMR 2.0's pair: the ViT sees the middle 3/4 of the columns of each square
-crop; in train mode its stochastic-depth masks are drawn from the
-``generator`` before its forward (``ViT.draw_masks``, whose docstring and
-``models/vit.py``'s give the order) and handed to it, eagerly or into the
-encoder's CUDA graph pair, which takes it under the ResNet's rules
-(``models/encoder_graph.py``); ``remat_encoder`` and the int8 encoder are
-the ResNet's and refuse it. The head runs ``num_stage``
-iterations (HMR 2.0's ``IEF_ITERS``), each from the same zero token,
-refining the estimate from the mean theta's 6D form; a stage's ``theta``
-and ``pose`` are then [cam 3 | 6D pose 144 | shape 10] and the 6D pose,
-and its ``rotations`` the 6D map's matrices.
+ResNet's weights once (``models/quantize.py``), and ``forward(...,
+encoder_qparams=...)`` runs it in eval mode in place of the float encoder.
+``remat_encoder`` and the int8 encoder refuse the ViT.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import math
 from typing import List, Optional, Tuple
 
 import torch
@@ -65,13 +62,12 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import at_least_f32, resolve_device
 from ..core.projection import orth_project
-from ..core.rotations import rot6d_to_rotmat
 from ..core.smpl import SMPLModel, smpl_forward
 from ..utils.tracing import span
 from . import encoder_graph
 from .regressor import IEFRegressor
-from .resnet import FlaxBatchNorm2d, ResNet, make_resnet
-from .transformer_head import HMR2_HEAD, NUM_JOINTS, HeadShape, TransformerDecoderHead
+from .resnet import ResNet, make_resnet
+from .transformer_head import HMR2_HEAD, HeadShape, TransformerDecoderHead
 from .vit import VIT_H, ViT, ViTShape
 
 NUM_CAM = 3
@@ -79,8 +75,6 @@ NUM_POSE = 72
 NUM_SHAPE = 10
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# (backbone, head) pairs the model builds
-PAIRS = (("resnet", "ief"), ("vit_h", "transformer"))
 
 
 @dataclasses.dataclass
@@ -107,18 +101,30 @@ def split_theta(theta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.
     )
 
 
-def _init_encoder(encoder: ResNet, generator: torch.Generator) -> None:
-    """Flax's defaults: lecun-normal (truncated) conv kernels, zero biases,
-    BN scale 1 / bias 0 / mean 0 / var 1."""
-    for m in encoder.modules():
-        if isinstance(m, nn.Conv2d):
-            fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
-            # the truncated normal's std correction of variance_scaling
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
-            nn.init.zeros_(m.bias)
-        elif isinstance(m, nn.BatchNorm2d):
-            m.reset_parameters()
+def _resnet_ief(device, seed, encoder_depth, encoder_stage_sizes, **_):
+    """The ResNet and IEF, drawn from a CPU generator (``HMR`` moves them)."""
+    encoder = make_resnet(encoder_depth) if encoder_stage_sizes is None else ResNet(tuple(encoder_stage_sizes))
+    regressor = IEFRegressor(feature_dim=encoder.feature_dim)
+    gen = torch.Generator().manual_seed(seed)
+    encoder.reset_parameters(gen)
+    regressor.reset_parameters(gen)
+    return encoder, "regressor", regressor
+
+
+def _vit_transformer(device, seed, img_size, vit_shape, head_shape, **_):
+    """HMR 2.0's ViT and transformer head, built and drawn on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.device(device):
+        encoder = ViT(img_size, vit_shape or VIT_H)
+        head = TransformerDecoderHead(encoder.feature_dim, head_shape or HMR2_HEAD)
+    encoder.reset_parameters(gen)
+    head.reset_parameters(gen)
+    return encoder, "head", head
+
+
+# (backbone, head) -> the builder of (encoder, the head's attribute: its state-dict prefix, head)
+FAMILIES = {("resnet", "ief"): _resnet_ief, ("vit_h", "transformer"): _vit_transformer}
+PAIRS = tuple(FAMILIES)
 
 
 class HMR(nn.Module):
@@ -154,33 +160,20 @@ class HMR(nn.Module):
         super().__init__()
         if encoder_dtype not in _DTYPES:
             raise ValueError(f"encoder_dtype must be one of {sorted(_DTYPES)}")
-        if (backbone, head) not in PAIRS:
+        if (backbone, head) not in FAMILIES:
             raise ValueError(f"(backbone, head) must be one of {PAIRS}, got {(backbone, head)}")
-        if backbone != "resnet" and remat_encoder:
-            raise ValueError("remat_encoder recomputes the ResNet encoder only")
         self.device = resolve_device(device)
         self.smpl = smpl.to(self.device)
         self.num_stage = num_stage
         self.joint_type = joint_type
         self.encoder_dtype = _DTYPES[encoder_dtype]
         self.remat_encoder = remat_encoder
-        self.backbone, self.head_type = backbone, head
-        if backbone == "vit_h":
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            with torch.device(self.device):
-                self.encoder = ViT(img_size, vit_shape or VIT_H)
-                self.head = TransformerDecoderHead(self.encoder.feature_dim, head_shape or HMR2_HEAD)
-            self.encoder.reset_parameters(gen)
-            self.head.reset_parameters(gen)
-        else:
-            if encoder_stage_sizes is None:
-                self.encoder = make_resnet(encoder_depth)
-            else:
-                self.encoder = ResNet(tuple(encoder_stage_sizes))
-            self.regressor = IEFRegressor(feature_dim=self.encoder.feature_dim)
-            gen = torch.Generator().manual_seed(seed)
-            _init_encoder(self.encoder, gen)
-            self.regressor.reset_parameters(gen)
+        self.encoder, self._head, stage_head = FAMILIES[(backbone, head)](
+            self.device, seed, encoder_depth=encoder_depth, encoder_stage_sizes=encoder_stage_sizes,
+            img_size=img_size, vit_shape=vit_shape, head_shape=head_shape)
+        self.add_module(self._head, stage_head)
+        if remat_encoder and not isinstance(self.encoder, ResNet):
+            raise ValueError("remat_encoder recomputes the ResNet encoder only")
         self.to(self.device)
         self.eval()
 
@@ -215,23 +208,6 @@ class HMR(nn.Module):
             enabled=self.encoder_dtype == torch.bfloat16,
         )
 
-    @contextlib.contextmanager
-    def _recompute_context(self):
-        """The context of the encoder's recompute in the backward: train
-        mode (the caller may have left it by then) with the BN running
-        statistics frozen, since the forward already updated them."""
-        was = self.encoder.training
-        bns = [m for m in self.encoder.modules() if isinstance(m, FlaxBatchNorm2d)]
-        self.encoder.train()
-        for m in bns:
-            m.update_running_stats = False
-        try:
-            yield
-        finally:
-            for m in bns:
-                m.update_running_stats = True
-            self.encoder.train(was)
-
     @torch.no_grad()
     def quantize_encoder(self, calibration_images: Optional[torch.Tensor] = None):
         """Fold BN into the encoder's convolutions and quantize them to int8
@@ -241,9 +217,9 @@ class HMR(nn.Module):
         path; without them they stay None (per-image dynamic scales)."""
         from .quantize import calibrate_resnet, quantize_resnet
 
-        if self.backbone != "resnet":
+        if not isinstance(self.encoder, ResNet):
             raise ValueError("the int8 encoder is the ResNet's; the ViT has none")
-        if getattr(self.encoder, "stem", "standard") != "standard":
+        if self.encoder.stem != "standard":
             raise ValueError("int8 encoder supports the standard stem only")
         weights = quantize_resnet(
             dict(self.encoder.named_parameters()), dict(self.encoder.named_buffers()), self.encoder.stage_sizes
@@ -253,11 +229,9 @@ class HMR(nn.Module):
             act = calibrate_resnet(weights, calibration_images, self.encoder.stage_sizes)
         return {"weights": weights, "act": act}
 
-    def _encode(self, images: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def _encode(self, images: torch.Tensor, masks: Optional[torch.Tensor]) -> torch.Tensor:
         with self._autocast():
-            if self.backbone == "vit_h":
-                return self.encoder(images, self.encoder.draw_masks(images.shape[0], generator))
-            return self.encoder(images)
+            return self.encoder(images, masks)
 
     def forward(
         self,
@@ -270,15 +244,15 @@ class HMR(nn.Module):
         """images (N, H, W, 3) in [-1, 1]; mean_theta (1, 85) initial
         estimate. Returns one StageOutput per IEF stage (per head iteration
         of the transformer head). In train mode ``generator`` (on the
-        module's device) draws the dropout masks of the last IEF stage, or
-        the ViT's stochastic-depth masks. ``encoder_qparams`` (from
+        module's device) draws the ViT's stochastic-depth masks, then the
+        dropout masks of the last IEF stage. ``encoder_qparams`` (from
         ``quantize_encoder``, inference only) runs the int8 encoder."""
         if encoder_qparams is not None and self.training:
             raise ValueError("encoder_qparams is an inference-only path")
         if smpl_stages not in ("all", "last"):
             raise ValueError("smpl_stages must be 'all' or 'last'")
-        n = images.shape[0]
         with span("model.encoder"):
+            masks = self.encoder.draw_masks(images.shape[0], generator)
             if encoder_qparams is not None:
                 from .quantize import resnet_apply_int8
 
@@ -286,71 +260,32 @@ class HMR(nn.Module):
                     encoder_qparams["weights"], images, self.encoder.stage_sizes, act_scales=encoder_qparams["act"]
                 )
             elif self.training and self.remat_encoder:
-                # the encoder draws no random numbers, so no RNG state is kept
+                # the masks are drawn up front, so no RNG state is kept
                 features = checkpoint(
                     self._encode,
                     images,
+                    masks,
                     use_reentrant=False,
                     preserve_rng_state=False,
-                    context_fn=lambda: (contextlib.nullcontext(), self._recompute_context()),
+                    context_fn=lambda: (contextlib.nullcontext(), self.encoder.recomputing()),
                 )
             elif encoder_graph.bypass(self, images) is None:
-                features = encoder_graph.encode(self, images, generator)
+                features = encoder_graph.encode(self, images, masks)
             else:
-                features = self._encode(images, generator)
-        if self.head_type == "transformer":
-            return self._decode(features, at_least_f32(mean_theta), smpl_stages)
-        theta = at_least_f32(mean_theta).expand(n, -1)
+                features = self._encode(images, masks)
+        head = getattr(self, self._head)
+        estimate = at_least_f32(mean_theta)
         stages: List[StageOutput] = []
         for stage in range(self.num_stage):
             last = stage == self.num_stage - 1
-            # reference quirk: dropout on the final IEF stage only
-            stage_train = self.training and last
-            with span("model.ief"), self._autocast():
-                delta = self.regressor(features, theta, train=stage_train, generator=generator)
-            theta = theta + delta
-            cam, pose, shape = split_theta(theta)
+            estimate, (theta, cam, pose, shape), body_pose = head.step(
+                features, estimate, stage == 0, last, generator, self._autocast
+            )
+            out = StageOutput(theta=theta, cam=cam, pose=pose, shape=shape)
             if smpl_stages == "all" or last:
                 with span("model.smpl"):
-                    out = smpl_forward(self.smpl, shape, pose, joint_type=self.joint_type)
-                    kp2d = orth_project(out.joints, cam)
-                stages.append(
-                    StageOutput(
-                        theta=theta,
-                        cam=cam,
-                        pose=pose,
-                        shape=shape,
-                        verts=out.verts,
-                        joints3d=out.joints,
-                        rotations=out.rotations[:, 1:],
-                        kp2d=kp2d,
-                    )
-                )
-            else:
-                stages.append(StageOutput(theta=theta, cam=cam, pose=pose, shape=shape))
-        return stages
-
-    def _decode(self, context: torch.Tensor, mean_theta: torch.Tensor, smpl_stages: str) -> List[StageOutput]:
-        """The transformer head's iterations from the mean theta over the
-        ViT's tokens, the body model from the 6D map's matrices."""
-        n = context.shape[0]
-        stages: List[StageOutput] = []
-        for stage in range(self.num_stage):
-            last = stage == self.num_stage - 1
-            with span("model.head"):
-                if stage == 0:
-                    estimate = self.head.initial(mean_theta, n)
-                with self._autocast():
-                    estimate = self.head(context, estimate)
-                cam, pose6d, shape = estimate
-                rotations = rot6d_to_rotmat(pose6d.reshape(n, NUM_JOINTS, 6))
-            theta = torch.cat([cam, pose6d, shape], dim=-1)
-            if smpl_stages == "all" or last:
-                with span("model.smpl"):
-                    out = smpl_forward(self.smpl, shape, None, joint_type=self.joint_type, rotations=rotations)
-                    kp2d = orth_project(out.joints, cam)
-                stages.append(StageOutput(theta=theta, cam=cam, pose=pose6d, shape=shape, verts=out.verts,
-                                          joints3d=out.joints, rotations=out.rotations[:, 1:], kp2d=kp2d))
-            else:
-                stages.append(StageOutput(theta=theta, cam=cam, pose=pose6d, shape=shape))
+                    body = smpl_forward(self.smpl, shape, joint_type=self.joint_type, **body_pose)
+                    out.kp2d = orth_project(body.joints, cam)
+                out.verts, out.joints3d, out.rotations = body.verts, body.joints, body.rotations[:, 1:]
+            stages.append(out)
         return stages

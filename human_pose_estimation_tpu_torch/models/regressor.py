@@ -14,6 +14,7 @@ from torch import nn
 
 from .. import at_least_f32
 from ..parallel import mesh as pmesh
+from ..utils.tracing import span
 
 THETA_DIM = 85  # [cam 3 | pose 72 | shape 10]
 FEATURE_DIM = 2048
@@ -73,3 +74,22 @@ class IEFRegressor(nn.Module):
         if train:
             x = self._dropout(x, generator)
         return at_least_f32(self.out(x))
+
+    def initial(self, mean_theta: torch.Tensor, n: int) -> torch.Tensor:
+        """The first estimate: the (1, 85) mean theta on each of ``n`` rows."""
+        return mean_theta.expand(n, -1)
+
+    def step(self, features, theta, first, last, generator, autocast):
+        """One IEF stage from ``theta`` (the mean theta on the ``first``):
+        (the next theta, (theta, cam, pose, shape), the body model's pose).
+        Train-mode dropout acts on the ``last`` stage only (the reference
+        quirk); ``autocast()`` covers the MLP."""
+        from .hmr import split_theta  # the theta layout, where the JAX package keeps it
+
+        if first:
+            theta = self.initial(theta, features.shape[0])
+        with span("model.ief"), autocast():
+            delta = self(features, theta, train=self.training and last, generator=generator)
+        theta = theta + delta
+        cam, pose, shape = split_theta(theta)
+        return theta, (theta, cam, pose, shape), {"theta": pose}

@@ -29,7 +29,9 @@ it.
 """
 from __future__ import annotations
 
-from typing import Sequence
+import contextlib
+import math
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -59,7 +61,7 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     rows (``nn.SyncBatchNorm`` would update the running variance with the
     unbiased estimate, the same trap). With
     ``update_running_stats`` False the train mode leaves the buffers alone
-    (the recompute of a rematerialised encoder, ``models/hmr.py``).
+    (``ResNet.recomputing``).
     """
 
     update_running_stats = True
@@ -170,8 +172,45 @@ class ResNet(nn.Module):
                 in_ch = filters * 4
         self.feature_dim = in_ch
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (N, H, W, 3) NHWC -> (N, feature_dim) f32."""
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Flax's defaults, drawn from ``generator``: lecun-normal
+        (truncated) conv kernels, zero biases, BN scale 1 / bias 0 / mean 0
+        / var 1."""
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+                # the truncated normal's std correction of variance_scaling
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+                nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+
+    @contextlib.contextmanager
+    def recomputing(self):
+        """The context of a rematerialised forward's recompute in the
+        backward: train mode (the caller may have left it by then) with the
+        BN running statistics frozen, since the forward already updated
+        them."""
+        was = self.training
+        bns = [m for m in self.modules() if isinstance(m, FlaxBatchNorm2d)]
+        self.train()
+        for m in bns:
+            m.update_running_stats = False
+        try:
+            yield
+        finally:
+            for m in bns:
+                m.update_running_stats = True
+            self.train(was)
+
+    def draw_masks(self, n: int, generator: Optional[torch.Generator]) -> None:
+        """The ResNet draws no random numbers: None, the generator untouched."""
+        return None
+
+    def forward(self, x: torch.Tensor, masks: None = None) -> torch.Tensor:
+        """x: (N, H, W, 3) NHWC -> (N, feature_dim) f32; ``masks``: None,
+        ``draw_masks``'s."""
         if self.stem == "s2d":
             x = F.pad(space_to_depth_2x2(x).permute(0, 3, 1, 2), (2, 1, 2, 1))
         else:

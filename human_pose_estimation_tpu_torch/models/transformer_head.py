@@ -34,7 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.rotations import rodrigues, rotmat_to_rot6d
+from ..core.rotations import rodrigues, rot6d_to_rotmat, rotmat_to_rot6d
+from ..utils.tracing import span
 
 NUM_JOINTS = 24
 POSE_6D = 6 * NUM_JOINTS
@@ -134,3 +135,19 @@ class TransformerDecoderHead(nn.Module):
             x = layer(x, context)
         x = x[:, 0]
         return self.deccam(x) + cam, self.decpose(x) + pose6d, self.decshape(x) + shape
+
+    def step(self, context, estimate, first, last, generator, autocast):
+        """One iteration from ``estimate`` (the mean theta on the ``first``,
+        made ``initial`` inside the span): (the refined estimate, (theta,
+        cam, 6D pose, shape), the body model's pose: the 6D map's matrices).
+        ``autocast()`` covers the decoder alone; the head draws nothing."""
+        n = context.shape[0]
+        with span("model.head"):
+            if first:
+                estimate = self.initial(estimate, n)
+            with autocast():
+                estimate = self(context, estimate)
+            cam, pose6d, shape = estimate
+            rotations = rot6d_to_rotmat(pose6d.reshape(n, NUM_JOINTS, 6))
+        theta = torch.cat([cam, pose6d, shape], dim=-1)
+        return estimate, (theta, cam, pose6d, shape), {"theta": None, "rotations": rotations}

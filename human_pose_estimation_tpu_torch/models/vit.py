@@ -28,9 +28,10 @@ branches at the rate ``linspace(0, 0.55, depth)[i]`` (ViT-H's
 a row is kept where ``floor(keep + u) == 1`` for one uniform u, and a kept
 row is scaled by 1 / keep (timm's ``drop_path``: ``x / keep * mask``).
 The masks are drawn before the forward, by ``ViT.draw_masks(n, generator)``,
-and handed to it (``ViT.forward(images, masks)``): one code path, eager or
-replayed from the encoder's CUDA graph pair (``models/encoder_graph.py``),
-which copies them into its capture's static buffer. The uniforms come from
+and handed to it (``ViT.forward(images, masks)``), the contract of every
+encoder of ``models/hmr.HMR``: one code path, eager or replayed from the
+encoder's CUDA graph pair (``models/encoder_graph.py``), which copies them
+into its capture's static buffer. The uniforms come from
 the caller's ``torch.Generator`` in a fixed order: blocks in order, in each
 the attention branch's (N,) then the MLP branch's (N,), f32 on the
 generator's device, one ``torch.rand`` call each; a block at rate 0 draws
@@ -126,12 +127,6 @@ class Block(nn.Module):
 
 class ViT(nn.Module):
     """ViTPose's ViT on (N, S, S, 3) crops -> (N, tokens, width)."""
-
-    # the train-mode forward applies random masks (stochastic depth), drawn
-    # up front by draw_masks: the encoder's CUDA graph pair
-    # (models/encoder_graph.py) takes an encoder that draws random numbers
-    # only where it has that hook
-    draws_random = True
 
     def __init__(self, img_size: int = 256, shape: ViTShape = VIT_H):
         super().__init__()

@@ -120,14 +120,6 @@ def _cpu(hmr, images, monkeypatch):
     return {}, contextlib.nullcontext()
 
 
-def _draws_in_forward(hmr, images, monkeypatch):
-    # an encoder that declares random draws in its forward and no
-    # ``draw_masks`` hook that draws them up front
-    hmr.train()
-    hmr.encoder.draws_random = True
-    return {}, contextlib.nullcontext()
-
-
 # case: (set-up, the reason ``bypass`` gives); the int8 encoder is an
 # eval-mode path that ``HMR.forward`` branches to before the rules
 RULES = {
@@ -138,7 +130,6 @@ RULES = {
     "process_group": (_process_group, "process group"),
     "frozen": (_frozen, "gradients other than the parameters'"),
     "cpu": (_cpu, "not on a CUDA device"),
-    "draws_in_forward": (_draws_in_forward, "random numbers in the forward"),
 }
 
 
@@ -166,18 +157,17 @@ def test_a_call_that_passes_the_rules_takes_the_graph_pair(monkeypatch):
     ``encode`` inside ``model.encoder``."""
     hmr, images = _hmr(), _images()
     hmr.train()
-    calls, generators = [], []
+    calls = []
 
-    def encode(h, x, generator=None):
-        calls.append(x)
-        generators.append(generator)
+    def encode(h, x, masks):
+        calls.append((x, masks))
         with tracing.span("model.encoder.graph"):
-            return h._encode(x)
+            return h._encode(x, masks)
 
     monkeypatch.setattr(encoder_graph, "bypass", lambda h, x: None)
     monkeypatch.setattr(encoder_graph, "encode", encode)
     names, _ = _forward_spans(hmr, images)
-    assert len(calls) == 1 and calls[0] is images and isinstance(generators[0], torch.Generator)
+    assert len(calls) == 1 and calls[0][0] is images and calls[0][1] is None  # the ResNet draws no masks
     assert names.index("model.encoder") < names.index("model.encoder.graph")
     assert names.count("model.encoder.graph") == 1
 
@@ -268,7 +258,7 @@ def test_graphed_forward_and_gradients_match_eager_resnet50(batch):
         outs = {}
         for name, m in (("graphed", graphed), ("eager", eager), ("again", again)):
             params = list(m.encoder.parameters())
-            f = encoder_graph.encode(m, x) if name == "graphed" else m._encode(x)
+            f = encoder_graph.encode(m, x, None) if name == "graphed" else m._encode(x, None)
             outs[name] = (f.detach(), torch.autograd.grad(f, params, g_out), list(m.encoder.buffers()))
         (fg, gg, bg), (fe, ge, be), (fa, ga, ba) = outs["graphed"], outs["eager"], outs["again"]
         gaps = {"features": (_rel(fg, fe), _rel(fa, fe)),
@@ -300,7 +290,7 @@ def test_capture_leaves_parameters_and_buffers_as_it_found_them():
     # one replay moves the statistics once, as one eager forward does
     eager = copy.deepcopy(hmr)
     encoder_graph._Replay.apply(pair, x, *params)
-    eager._encode(x)
+    eager._encode(x, None)
     for (k, a), b in zip(hmr.encoder.named_buffers(), eager.encoder.buffers()):
         assert _rel(a.float(), b.float()) < 1e-6, k
     assert int(hmr.encoder.bn1.num_batches_tracked) == int(before["bn1.num_batches_tracked"]) + 1
@@ -318,8 +308,8 @@ def test_backward_accumulates_into_grad_as_eager():
         m.train()
     for seed in range(2):
         x = _images(4, IMG, dev, seed=seed)
-        encoder_graph.encode(graphed, x).square().sum().backward()
-        eager._encode(x).square().sum().backward()
+        encoder_graph.encode(graphed, x, None).square().sum().backward()
+        eager._encode(x, None).square().sum().backward()
     for (name, a), b in zip(graphed.encoder.named_parameters(), eager.encoder.parameters()):
         assert torch.equal(a.grad, b.grad), name
 
@@ -435,9 +425,9 @@ def test_a_restored_checkpoint_and_rebound_weights_recapture(tmp_path):
     hmr.load_state_dict(sd, assign=True)
     assert encoder_graph.signature(hmr, x) != before
     eager = copy.deepcopy(hmr)
-    f = encoder_graph.encode(hmr, x)
+    f = encoder_graph.encode(hmr, x, None)
     assert encoder_graph.CAPTURES == captures + 2
-    assert _rel(f, eager._encode(x)) == 0.0
+    assert _rel(f, eager._encode(x, None)) == 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -489,7 +479,8 @@ def test_graphed_forward_and_gradients_match_eager_vit():
         outs = {}
         for name, m in models.items():
             params = list(m.encoder.parameters())
-            f = encoder_graph.encode(m, x, gens[name]) if name == "graphed" else m._encode(x, gens[name])
+            masks = m.encoder.draw_masks(8, gens[name])
+            f = encoder_graph.encode(m, x, masks) if name == "graphed" else m._encode(x, masks)
             outs[name] = (f.detach(), torch.autograd.grad(f, params, g_out.to(dev)))
         (fg, gg), (fe, ge), (fa, ga) = outs["graphed"], outs["eager"], outs["again"]
         gaps = {"features": (_rel(fg, fe), _rel(fa, fe)),
@@ -564,14 +555,14 @@ def test_rebound_vit_weights_recapture():
     hmr.train()
     x = _images(4, VIT_IMG, dev)
     captures = encoder_graph.CAPTURES
-    encoder_graph.encode(hmr, x, _step_gen(dev))
-    encoder_graph.encode(hmr, x, _step_gen(dev))
+    encoder_graph.encode(hmr, x, hmr.encoder.draw_masks(4, _step_gen(dev)))
+    encoder_graph.encode(hmr, x, hmr.encoder.draw_masks(4, _step_gen(dev)))
     assert encoder_graph.CAPTURES == captures + 1
     sd = {k: v.clone() for k, v in hmr.state_dict().items()}
     before = encoder_graph.signature(hmr, x)
     hmr.load_state_dict(sd, assign=True)
     assert encoder_graph.signature(hmr, x) != before
     eager = copy.deepcopy(hmr)
-    f = encoder_graph.encode(hmr, x, _step_gen(dev, 8))
+    f = encoder_graph.encode(hmr, x, hmr.encoder.draw_masks(4, _step_gen(dev, 8)))
     assert encoder_graph.CAPTURES == captures + 2
-    assert _rel(f, eager._encode(x, _step_gen(dev, 8))) == 0.0
+    assert _rel(f, eager._encode(x, eager.encoder.draw_masks(4, _step_gen(dev, 8)))) == 0.0

@@ -232,6 +232,39 @@ def test_spans_of_the_model(tiny):
     assert len(stages) == 2 and stages[1].rotations.shape == (2, 23, 3, 3)
 
 
+@pytest.mark.parametrize("pair", ["resnet-ief", "vit_h-transformer"])
+def test_both_pairs_share_the_model_seam(tiny, pair):
+    """Either pair through ``HMR``'s one seam: ``draw_masks`` draws nothing
+    in eval mode, nor from the ResNet in train mode; a train-mode forward
+    enters its head's span once a stage, and ``model.smpl`` once a stage
+    with ``smpl_stages='all'`` and once with ``'last'``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if pair == "resnet-ief":
+        hmr = HMR(program_body(tiny[2], "cpu"), encoder_stage_sizes=(1, 1, 1, 1), device="cpu")
+        head_span, drawless = "model.ief", (False, True)
+    else:
+        hmr = _hmr(tiny, torch.float32)
+        hmr.num_stage = 3  # HMR 2.0 runs one iteration
+        head_span, drawless = "model.head", (False,)
+    gen = torch.Generator().manual_seed(1)
+    state = gen.get_state()
+    for train in drawless:
+        hmr.train(train)
+        assert hmr.encoder.draw_masks(2, gen) is None
+    assert torch.equal(gen.get_state(), state)
+    hmr.train()
+    for smpl_stages, with_body in (("all", [True] * 3), ("last", [False, False, True])):
+        tracing.take()
+        with profile(activities=[ProfilerActivity.CPU]):
+            stages = hmr(_images().float(), tiny[4], smpl_stages=smpl_stages, generator=gen)
+        names = [s.name for s in tracing.take()]
+        assert names.count(head_span) == hmr.num_stage == 3
+        assert names.count("model.smpl") == sum(with_body)
+        assert [s.verts is not None for s in stages] == with_body
+    assert not torch.equal(gen.get_state(), state)  # IEF's dropout, or the ViT's masks, drew
+
+
 def test_the_encoder_graph_remat_and_int8_leave_the_vit_alone(tiny):
     hmr = _hmr(tiny, torch.float32)
     hmr.train()
