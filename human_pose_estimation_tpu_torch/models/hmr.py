@@ -43,7 +43,9 @@ once per step, as JAX's ``jax.checkpoint`` returns them once. Otherwise a
 train-mode encoder on the card under grad mode, with no process group,
 replays its forward and backward as one CUDA graph pair
 (``models/encoder_graph.py``, which names the rules); every other call
-runs it eagerly.
+runs it eagerly. The body model takes its own graphs under grad mode on the
+card, one capture a stage (``models/body_graph.py``, the stage index its
+slot); evaluation, serving and the CPU run it eagerly.
 
 The int8 serving encoder: ``HMR.quantize_encoder`` folds and quantizes the
 ResNet's weights once (``models/quantize.py``), and ``forward(...,
@@ -62,9 +64,9 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import at_least_f32, resolve_device
 from ..core.projection import orth_project
-from ..core.smpl import SMPLModel, smpl_forward
+from ..core.smpl import SMPLModel
 from ..utils.tracing import span
-from . import encoder_graph
+from . import body_graph, encoder_graph
 from .regressor import IEFRegressor
 from .resnet import ResNet, make_resnet
 from .transformer_head import HMR2_HEAD, HeadShape, TransformerDecoderHead
@@ -284,7 +286,8 @@ class HMR(nn.Module):
             out = StageOutput(theta=theta, cam=cam, pose=pose, shape=shape)
             if smpl_stages == "all" or last:
                 with span("model.smpl"):
-                    body = smpl_forward(self.smpl, shape, joint_type=self.joint_type, **body_pose)
+                    body = body_graph.forward(stage, self.smpl, shape, joint_type=self.joint_type,
+                                              int8=encoder_qparams is not None, **body_pose)
                     out.kp2d = orth_project(body.joints, cam)
                 out.verts, out.joints3d, out.rotations = body.verts, body.joints, body.rotations[:, 1:]
             stages.append(out)

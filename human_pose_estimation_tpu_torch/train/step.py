@@ -36,7 +36,7 @@ import torch
 from .. import resolve_device
 from ..config import Config
 from ..core.projection import reproject_to_pixels
-from ..core.smpl import smpl_forward
+from ..models import body_graph
 from ..ops import kcs as K
 from ..ops import losses as L
 from ..parallel import mesh as pmesh
@@ -78,8 +78,9 @@ class MocapBatch(NamedTuple):
 def mocap_batch(smpl, pose: torch.Tensor, shape: torch.Tensor) -> MocapBatch:
     """Real critic samples from mocap ``pose`` (M, 72) and ``shape`` (M, 10)
     on the body model's device: one batched body-model forward with the 19
-    cocoplus joints, the rotations without the root."""
-    out = smpl_forward(smpl, shape, pose, joint_type="cocoplus")
+    cocoplus joints, the rotations without the root; on the card a replay
+    of the forward graph of ``body_graph.MOCAP``'s slot."""
+    out = body_graph.forward(body_graph.MOCAP, smpl, shape, pose, joint_type="cocoplus")
     return MocapBatch(joints=out.joints, shapes=shape, rotations=out.rotations[:, 1:])
 
 

@@ -26,6 +26,8 @@ stage):
         step.prep       the batch copied to the device and augmented, its
                         silhouettes extracted (DevicePreprocessor)
         step.mocap      the mocap copied and posed by the body model
+          model.smpl.graph  the pose replayed as a CUDA graph
+                        (models/body_graph.py, forward only)
         gen.forward     the HMR forward
           model.encoder the encoder, ResNet or ViT (the ViT's
                         stochastic-depth masks drawn here first)
@@ -37,6 +39,9 @@ stage):
                         and its 6D-to-matrix map, in place of model.ief
                         (the encoder is then the ViT)
           model.smpl    per stage, the body model and the projection
+            model.smpl.graph  the body model's forward replayed as a
+                        CUDA graph (models/body_graph.py; the backward
+                        replays inside gen.backward)
         gen.losses      the per-stage losses
           chamfer.k2    each silhouette chamfer with its gradient (K2)
           critic.score  per stage, the critic on the stage's fakes
