@@ -1,10 +1,11 @@
-"""Weak-perspective camera projection (counterpart of
-``human_pose_estimation_tpu/core/projection.py``)."""
+"""Camera projections: the weak perspective (counterpart of
+``human_pose_estimation_tpu/core/projection.py``), and the port's own
+perspective projection from intrinsics (Multi-HMR's camera)."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["orth_project", "reproject_to_pixels"]
+__all__ = ["orth_project", "perspective_project", "reproject_to_pixels"]
 
 
 def orth_project(points: torch.Tensor, camera: torch.Tensor) -> torch.Tensor:
@@ -15,6 +16,18 @@ def orth_project(points: torch.Tensor, camera: torch.Tensor) -> torch.Tensor:
     """
     cam = camera.reshape(-1, 1, 3)
     return cam[..., :1] * (points[..., :2] + cam[..., 1:])
+
+
+def perspective_project(points: torch.Tensor, translation: torch.Tensor, focal: float,
+                        principal: float) -> torch.Tensor:
+    """The pinhole camera at the origin looking down +z, with square
+    pixels: ``f * (X + t)[:2] / (Z + tz) + c``.
+
+    points (N, P, 3), translation (N, 3), ``focal`` and ``principal`` (the
+    principal point, the same on both axes) in pixels -> (N, P, 2) pixel
+    coordinates."""
+    p = points + translation.reshape(-1, 1, 3)
+    return focal * p[..., :2] / p[..., 2:] + principal
 
 
 def reproject_to_pixels(verts: torch.Tensor, camera: torch.Tensor, img_size) -> torch.Tensor:

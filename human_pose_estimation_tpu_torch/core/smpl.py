@@ -6,12 +6,21 @@ the 24-joint tree as (R, t) pairs, linear blend skinning, and the
 cocoplus / LSP keypoint regressor. ``SMPLModel`` is a plain container of
 tensors; the loaders read the official pickle and the npz layout with
 numpy only.
+
+The body's layout (``BodyLayout``: its joints and their parents, the pose
+features, the vertices, the shape and the optional expression directions)
+is read off the model's tensors. SMPL is one instance (24 joints, 207
+pose features, 6890 vertices, no expression); SMPL-X (Pavlakos et al.,
+CVPR 2019) is another: 55 joints with ``SMPLX_PARENTS``, 486 pose
+features, 10,475 vertices and expression directions (``exprdirs``) that
+blend like the shape's, from the coefficients that follow the betas in
+the ``beta`` that ``smpl_forward`` takes. Every function below runs either.
 """
 from __future__ import annotations
 
 import dataclasses
 import pickle
-from typing import Any, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +38,39 @@ SMPL_PARENTS = (
     20, 21,
 )
 
+# SMPL-X's kinematic tree (kintree_table[0] of the released SMPL-X models):
+# the pelvis, 21 body joints, the jaw (22) and the two eyes (23, 24) under
+# the head, then 15 joints of the left hand (25-39) under the left wrist
+# and 15 of the right (40-54) under the right wrist
+SMPLX_PARENTS = (
+    0, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14, 16, 17, 18, 19,
+    15, 15, 15, 20, 25, 26, 20, 28, 29, 20, 31, 32, 20, 34, 35, 20, 37, 38,
+    21, 40, 41, 21, 43, 44, 21, 46, 47, 21, 49, 50, 21, 52, 53,
+)
+
+
+class BodyLayout(NamedTuple):
+    """What a body model's forward is shaped by: its kinematic tree, its
+    vertices, and the widths of its shape and expression coefficients."""
+
+    parents: Tuple[int, ...]
+    num_verts: int
+    num_betas: int = NUM_BETAS
+    num_expression: int = 0
+
+    @property
+    def num_joints(self) -> int:
+        return len(self.parents)
+
+    @property
+    def pose_features(self) -> int:
+        """The pose blend shapes' inputs: R - I of every joint but the root."""
+        return 9 * (self.num_joints - 1)
+
+
+SMPL_LAYOUT = BodyLayout(SMPL_PARENTS, 6890)
+SMPLX_LAYOUT = BodyLayout(SMPLX_PARENTS, 10475, NUM_BETAS, 10)
+
 _TENSOR_FIELDS = (
     "v_template", "shapedirs", "posedirs", "j_regressor", "lbs_weights", "joint_regressor",
 )
@@ -45,21 +87,27 @@ def _dense(x: Any) -> np.ndarray:
 
 @dataclasses.dataclass
 class SMPLModel:
-    """SMPL template assets. V = vertices (6890 for real SMPL), K = 24
-    joints, J = 19 cocoplus keypoints."""
+    """Body-model template assets. V = vertices (6890 for real SMPL), K =
+    joints (24 for SMPL, 55 for SMPL-X), J = 19 cocoplus keypoints."""
 
     v_template: torch.Tensor  # (V, 3)
     shapedirs: torch.Tensor  # (NUM_BETAS, V*3)
-    posedirs: torch.Tensor  # (POSE_FEATURE_DIM, V*3)
+    posedirs: torch.Tensor  # (9 (K - 1), V*3)
     j_regressor: torch.Tensor  # (V, K)
     lbs_weights: torch.Tensor  # (V, K)
     joint_regressor: torch.Tensor  # (V, 19) cocoplus keypoint regressor
     parents: Tuple[int, ...] = SMPL_PARENTS
     faces: Optional[np.ndarray] = None
+    exprdirs: Optional[torch.Tensor] = None  # (E, V*3) expression directions (SMPL-X)
 
     @property
     def num_verts(self) -> int:
         return self.v_template.shape[0]
+
+    @property
+    def layout(self) -> BodyLayout:
+        return BodyLayout(tuple(self.parents), self.num_verts, self.shapedirs.shape[0],
+                          0 if self.exprdirs is None else self.exprdirs.shape[0])
 
     @classmethod
     def from_arrays(cls, parents=SMPL_PARENTS, faces=None, **arrays) -> "SMPLModel":
@@ -71,15 +119,18 @@ class SMPLModel:
         return cls(**tensors, parents=tuple(int(p) for p in parents), faces=faces)
 
     def to(self, device, dtype=None) -> "SMPLModel":
-        return dataclasses.replace(self, **{k: getattr(self, k).to(device, dtype) for k in _TENSOR_FIELDS})
+        moved = {k: getattr(self, k).to(device, dtype) for k in _TENSOR_FIELDS}
+        if self.exprdirs is not None:
+            moved["exprdirs"] = self.exprdirs.to(device, dtype)
+        return dataclasses.replace(self, **moved)
 
 
 @dataclasses.dataclass
 class SMPLOutput:
     verts: torch.Tensor  # (N, V, 3) posed, skinned vertices
     joints: torch.Tensor  # (N, 19|14, 3) regressed keypoints
-    rotations: torch.Tensor  # (N, 24, 3, 3) per-joint rotation matrices
-    joints_smpl: torch.Tensor  # (N, 24, 3) posed kinematic-tree joints
+    rotations: torch.Tensor  # (N, K, 3, 3) per-joint rotation matrices
+    joints_smpl: torch.Tensor  # (N, K, 3) posed kinematic-tree joints
 
 
 def load_model(path: str) -> SMPLModel:
@@ -159,28 +210,38 @@ def smpl_forward(
     joint_type: str = "cocoplus",
     rotations: Optional[torch.Tensor] = None,
 ) -> SMPLOutput:
-    """Batched SMPL forward from beta (N, 10) and the pose, given either as
-    ``theta`` (N, 72) axis-angle, turned into matrices by Rodrigues, or as
-    ``rotations`` (N, 24, 3, 3) matrices (``theta`` None), which skip it;
-    the blend shapes, the kinematic chain and the skinning are shared.
-    Returns verts (N, V, 3), joints (N, 19|14, 3), rotations (N, 24, 3,
-    3), joints_smpl (N, 24, 3). joint_type: 'cocoplus' (19) or 'lsp' (14)."""
+    """Batched body-model forward from beta (N, 10) and the pose, given
+    either as ``theta`` (N, 3K) axis-angle, turned into matrices by
+    Rodrigues, or as ``rotations`` (N, K, 3, 3) matrices (``theta`` None),
+    which skip it; the blend shapes, the kinematic chain and the skinning
+    are shared. K is the model's joint count (24 for SMPL). A model with
+    expression directions also takes beta (N, 10 + E): the betas, then the
+    expression coefficients, which blend the same way (without them the
+    expression is neutral). Returns verts (N, V, 3), joints (N, 19|14, 3),
+    rotations (N, K, 3, 3), joints_smpl (N, K, 3). joint_type: 'cocoplus'
+    (19) or 'lsp' (14)."""
     if joint_type not in ("cocoplus", "lsp"):
         raise ValueError(f"joint_type must be 'cocoplus' or 'lsp', got {joint_type!r}")
     if (theta is None) == (rotations is None):
         raise ValueError("give the pose as exactly one of theta (axis-angle) and rotations (matrices)")
     n = beta.shape[0]
     v = model.num_verts
+    layout = model.layout
+    k = layout.num_joints
 
-    # 1. shape blendshapes and the shape-dependent rest joints
-    v_shaped = (beta @ model.shapedirs).reshape(n, v, 3) + model.v_template
+    # 1. shape (and expression) blendshapes and the shape-dependent rest joints
+    if beta.shape[1] > layout.num_betas:
+        blend = beta[:, : layout.num_betas] @ model.shapedirs + beta[:, layout.num_betas :] @ model.exprdirs
+    else:
+        blend = beta @ model.shapedirs
+    v_shaped = blend.reshape(n, v, 3) + model.v_template
     joints_rest = torch.einsum("nvc,vk->nkc", v_shaped, model.j_regressor)
 
     # 2. per-joint rotations and pose blendshapes
     if rotations is None:
-        rotations = rodrigues(theta.reshape(n, NUM_JOINTS, 3))
+        rotations = rodrigues(theta.reshape(n, k, 3))
     eye = torch.eye(3, dtype=rotations.dtype, device=rotations.device)
-    pose_feature = (rotations[:, 1:] - eye).reshape(n, POSE_FEATURE_DIM)
+    pose_feature = (rotations[:, 1:] - eye).reshape(n, layout.pose_features)
     v_posed = (pose_feature @ model.posedirs).reshape(n, v, 3) + v_shaped
 
     # 3. forward kinematics
@@ -192,7 +253,7 @@ def smpl_forward(
     #    the LBS weights in ONE (V,K)x(K,12) product per sample; blending R
     #    and t separately as (N,V,3,3) products builds a multi-GB
     #    intermediate at batch >= 128.
-    a_flat = torch.cat([world_r.reshape(n, NUM_JOINTS, 9), skin_t], dim=-1)  # (N, K, 12)
+    a_flat = torch.cat([world_r.reshape(n, k, 9), skin_t], dim=-1)  # (N, K, 12)
     blended = model.lbs_weights @ a_flat  # (N, V, 12)
     r_blend = blended[..., :9].reshape(n, v, 3, 3)
     verts = (r_blend * v_posed[:, :, None, :]).sum(dim=-1) + blended[..., 9:]

@@ -24,6 +24,13 @@ that both packages pick the same source pixels:
 Random draws come from the caller's ``torch.Generator`` on the images'
 device: translations uniform integers in ``[-trans_max, trans_max)``,
 scales uniform in ``[scale_min, scale_max)``, flips ``rand < 0.5``.
+
+``augment_slots`` is the same chain on whole images with K person slots
+(Multi-HMR's input, the port's own): the crop is centred on the image's
+centre, jittered, and every person's keypoints, centre and silhouette
+move with it; the silhouettes come as one uint8 bit mask per canvas (bit
+k is slot k's person, so that overlapping people keep their whole
+silhouettes), resampled as K channels.
 """
 from __future__ import annotations
 
@@ -35,7 +42,7 @@ import torch
 
 from ..parallel import mesh as pmesh
 
-__all__ = ["FLIP_SWAP_19", "AugmentConfig", "augment_batch", "extract_silhouette"]
+__all__ = ["FLIP_SWAP_19", "AugmentConfig", "augment_batch", "augment_slots", "extract_silhouette"]
 
 # L/R joint swap for horizontal flips, cocoplus 19-keypoint order
 FLIP_SWAP_19 = (5, 4, 3, 2, 1, 0, 11, 10, 9, 8, 7, 6, 12, 13, 14, 16, 15, 18, 17)
@@ -145,18 +152,29 @@ def augment_batch(
     centre crop at scale 1. ``global_draws``: under a process group, draw
     for the global batch and keep this rank's rows (the fused training
     step); a pipeline's own preprocessing draws per rank."""
-    n, canvas_h, canvas_w, _ = images.shape
+    n = images.shape[0]
     dev = images.device
-    out = cfg.out_size
+    trans, scales, flips = _pinned_or_drawn(n, cfg, generator, dev, overrides, global_draws)
+    crops, crop_segs, geometry = _crop(images, segs, hw, centers, trans, scales, flips, cfg.out_size)
+    return crops, crop_segs, _move_keypoints(keypoints, dev, *geometry, flips, cfg.out_size)
+
+
+def _pinned_or_drawn(n, cfg, generator, dev, overrides, global_draws):
+    """(trans, scales, flips): ``overrides`` on ``dev``, or ``_draws``'."""
+    if overrides is not None:
+        trans, scales, flips = (torch.as_tensor(t, device=dev) for t in overrides)
+        return trans.to(torch.int32), scales.float(), flips.bool()
+    return _draws(n, cfg, generator, dev, global_draws)
+
+
+def _crop(images, segs, hw, centers, trans, scales, flips, out: int):
+    """(crops in [-1, 1], seg crops, the geometry (fx, fy, start_x,
+    start_y)) of ``augment_batch``."""
+    _, canvas_h, canvas_w, _ = images.shape
+    dev = images.device
     margin = out // 2
     images = images.float() / 255.0 if images.dtype == torch.uint8 else images.float()
     segs = segs.float() / 255.0 if segs.dtype == torch.uint8 else segs.float()
-
-    if overrides is not None:
-        trans, scales, flips = (torch.as_tensor(t, device=dev) for t in overrides)
-        trans, scales, flips = trans.to(torch.int32), scales.float(), flips.bool()
-    else:
-        trans, scales, flips = _draws(n, cfg, generator, dev, global_draws)
 
     hw = hw.to(device=dev, dtype=torch.int32)
     center_j = centers.to(device=dev, dtype=torch.int32) + trans  # jittered centre
@@ -172,23 +190,65 @@ def augment_batch(
     wx = _axis_weights(w, canvas_w, out, scales, start_x, flips)
     crops = _resample(images, wy, wx)
     crop_segs = _resample(segs, wy, wx)
+    return crops * 2.0 - 1.0, crop_segs, (fx, fy, start_x, start_y)
 
-    # keypoints: the crop's geometry
+
+def _move_keypoints(keypoints, dev, fx, fy, start_x, start_y, flips, out: int) -> torch.Tensor:
+    """(N, ..., 3, 19) keypoint rows [x, y, vis] in canvas pixels -> (N,
+    ..., 19, 3) labels: the crop's geometry, a flip's swap of the left and
+    right joints, normalised to [-1, 1] with hidden ones zeroed."""
     keypoints = keypoints.to(device=dev, dtype=torch.float32)
-    vis = keypoints[:, 2, :]
-    x = keypoints[:, 0, :] * fx[:, None] - start_x[:, None].float()
-    y = keypoints[:, 1, :] * fy[:, None] - start_y[:, None].float()
+    per_row = (-1,) + (1,) * (keypoints.dim() - 2)  # an image's scalars over its keypoint rows
+    vis = keypoints[..., 2, :]
+    x = keypoints[..., 0, :] * fx.view(per_row) - start_x.view(per_row).float()
+    y = keypoints[..., 1, :] * fy.view(per_row) - start_y.view(per_row).float()
     swap = _flip_swap(dev)
     x_f = float(out) - x - 1.0
-    f = flips[:, None]
-    x = torch.where(f, x_f[:, swap], x)
-    y = torch.where(f, y[:, swap], y)
-    vis = torch.where(f, vis[:, swap], vis)
+    f = flips.view(per_row)
+    x = torch.where(f, x_f[..., swap], x)
+    y = torch.where(f, y[..., swap], y)
+    vis = torch.where(f, vis[..., swap], vis)
 
     # normalise to [-1, 1], zeroing hidden keypoints
     vis = (vis > 0).float()
-    label = torch.stack([(2.0 * (x / out) - 1.0) * vis, (2.0 * (y / out) - 1.0) * vis, vis], dim=-1)
-    return crops * 2.0 - 1.0, crop_segs, label
+    return torch.stack([(2.0 * (x / out) - 1.0) * vis, (2.0 * (y / out) - 1.0) * vis, vis], dim=-1)
+
+
+def augment_slots(
+    images: torch.Tensor,  # (B, S, S, 3) uint8 whole images
+    segs: torch.Tensor,  # (B, S, S) uint8, bit k: slot k's silhouette
+    centers: torch.Tensor,  # (B, K, 2) int [cx, cy] each person's centre
+    keypoints: torch.Tensor,  # (B, K, 3, 19) rows [x, y, vis]
+    present: torch.Tensor,  # (B, K) a person fills the slot
+    generator: Optional[torch.Generator],
+    cfg: AugmentConfig,
+    overrides: Optional[Tuple] = None,
+    global_draws: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``augment_batch`` on whole images with K person slots, on the
+    images' device: the crop of ``cfg.out_size`` around the image's centre,
+    jittered and scaled by the draws (``overrides`` pins them). Returns
+    (crops (B, S', S', 3) in [-1, 1], silhouette crops (B, S', S', K),
+    labels (B, K, 19, 3), centres (B, K, 2) f32 in crop pixels, valid (B, K)
+    f32: a person fills the slot and its centre lies inside the crop)."""
+    b, canvas_h, canvas_w, _ = images.shape
+    dev = images.device
+    k, out = keypoints.shape[1], cfg.out_size
+    silhouettes = ((segs.to(dev)[..., None] >> torch.arange(k, device=dev, dtype=torch.uint8)) & 1).float()
+    # filled on the device: a host value copied there would make the host wait
+    full = lambda *v: torch.cat([torch.full((b, 1), x, dtype=torch.int32, device=dev) for x in v], 1)  # noqa: E731
+    hw, middle = full(canvas_h, canvas_w), full(canvas_w // 2, canvas_h // 2)
+    trans, scales, flips = _pinned_or_drawn(b, cfg, generator, dev, overrides, global_draws)
+    crops, crop_segs, geometry = _crop(images, silhouettes, hw, middle, trans, scales, flips, out)
+    fx, fy, start_x, start_y = geometry
+    label = _move_keypoints(keypoints, dev, *geometry, flips, out)
+    c = centers.to(device=dev, dtype=torch.float32)
+    cx = c[..., 0] * fx[:, None] - start_x[:, None].float()
+    cx = torch.where(flips[:, None], float(out) - cx - 1.0, cx)
+    cy = c[..., 1] * fy[:, None] - start_y[:, None].float()
+    valid = (present.to(dev) > 0) & (cx >= 0) & (cx < out) & (cy >= 0) & (cy < out)
+    label = label * valid[..., None, None]
+    return crops, crop_segs, label, torch.stack([cx, cy], dim=-1), valid.float()
 
 
 # prime strides of the fallback visit order, largest first

@@ -8,7 +8,8 @@
 * device (``DevicePreprocessor``): the batch of canvases is copied to the
   device, which runs the augmentation and the silhouette extraction
   (``data/augment.py``), producing the ``GenBatch`` that the training step
-  consumes.
+  consumes; ``SlotPreprocessor`` does the same for whole images with K
+  person slots (``CrowdHostBatch`` in, ``SlotBatch`` out).
 
 ``MocapPipeline`` reads the mocap prior's tfrecords and poses each batch
 with one batched body-model forward on the device. TensorFlow is imported
@@ -24,13 +25,14 @@ import torch
 from .. import resolve_device
 from ..config import Config
 from ..parallel import mesh as pmesh
-from ..train.step import GenBatch, HostBatch, mocap_batch
+from ..train.step import GenBatch, HostBatch, SlotBatch, mocap_batch
 from ..utils.tracing import span
 from . import tfrecords
-from .augment import AugmentConfig, augment_batch, extract_silhouette
+from .augment import AugmentConfig, augment_batch, augment_slots, extract_silhouette
 
 __all__ = [
     "DevicePreprocessor",
+    "SlotPreprocessor",
     "ImagePipeline",
     "MocapPipeline",
     "person_window_half",
@@ -102,6 +104,29 @@ class DevicePreprocessor:
             )
             pts, mask = extract_silhouette(crop_segs, self.max_sil)
         return GenBatch(images=crops, seg_points=pts, seg_mask=mask, kp2d=label)
+
+
+class SlotPreprocessor(DevicePreprocessor):
+    """``augment_slots`` then ``extract_silhouette`` on every slot, on the
+    device: ``prep(crowd_host_batch, generator) -> SlotBatch``. A padded
+    slot, or one whose person's centre left the crop, has an empty
+    silhouette and hidden keypoints."""
+
+    def __call__(self, host_batch: Mapping, generator: Optional[torch.Generator] = None) -> SlotBatch:
+        """host_batch: {"image" (B, S, S, 3) uint8, "seg" (B, S, S) uint8
+        bit masks, "center" (B, K, 2), "label" (B, K, 3, 19), "present" (B,
+        K)} (``train.step.CrowdHostBatch``'s fields)."""
+        with span("step.prep"):
+            b = {k: to_device(host_batch[k], self.device) for k in ("image", "seg", "center", "label", "present")}
+            crops, crop_segs, label, centers, valid = augment_slots(
+                b["image"], b["seg"], b["center"], b["label"], b["present"], generator, self.aug_cfg,
+                global_draws=self.global_draws,
+            )
+            n, s, _, k = crop_segs.shape
+            pts, mask = extract_silhouette(crop_segs.permute(0, 3, 1, 2).reshape(n * k, s, s, 1), self.max_sil)
+            mask = mask * valid.reshape(-1, 1)
+        return SlotBatch(images=crops, seg_points=pts, seg_mask=mask, kp2d=label.reshape(n * k, *label.shape[2:]),
+                         centers=centers, valid=valid)
 
 
 def _fit_to_canvas(tf, parsed, canvas: int, window_half=None):

@@ -126,15 +126,7 @@ class Predictor:
         try:
             self.hmr.load_state_dict(variables)
         except RuntimeError as e:
-            if config.backbone != "resnet":
-                encoder = f"backbone={config.backbone!r}, vit_shape={config.vit_shape!r}"
-            elif config.encoder_stage_sizes:
-                encoder = f"encoder_stage_sizes={config.encoder_stage_sizes!r}"
-            else:
-                encoder = f"encoder_depth={config.encoder_depth}"
-            raise RuntimeError(
-                f"the weights of {source} do not fit the configured encoder ({encoder}): {e}"
-            ) from e
+            raise RuntimeError(f"the weights of {source} do not fit the configured model, {self.hmr.describe()}: {e}") from e
         self.device = self.hmr.device
         self.mean_theta = torch.as_tensor(mean_theta, dtype=torch.float32).reshape(1, -1).to(self.device)
         self.encoder_qparams = None

@@ -25,9 +25,11 @@ A capture is keyed by its slot (``HMR.forward``'s stage index, or
 losses, the critic's fakes), and a slot's backward needs the activations
 of that slot's own forward. The key holds besides the layout of the shape
 and the pose (shape, dtype, strides, storage offset, device), the pose's
-form (axis-angle ``theta`` (N, 72) or matrices ``rotations`` (N, 24, 3, 3)),
-``joint_type``, grad mode, and the model's kinematic tree and the storage
-of its six tensors.
+form (axis-angle ``theta`` (N, 3K) or matrices ``rotations`` (N, K, 3, 3)),
+``joint_type``, grad mode, and the model's layout (``core.smpl.BodyLayout``:
+its tree, vertices, shape and expression widths; SMPL's and SMPL-X's
+differ) and the storage of its tensors (the expression directions too,
+where it has them).
 
 What keeps the replay exact:
 
@@ -50,7 +52,16 @@ What keeps the replay exact:
   caller's own tensor comes back, so autograd adds the caller's gradient
   of it to the graph's in one more sum, where eager adds every term in one
   sum: the pose's gradient may differ from eager's in the order of that
-  sum.
+  sum;
+* the captures run on a stream of their own, as the encoder pair's do
+  (``models/encoder_graph.py``), never on ``torch.cuda.graph``'s shared
+  default one. PyTorch keeps one cuBLAS workspace per (handle, stream),
+  so graphs captured on one stream record the same workspace. With the
+  encoder pair and the body model both captured on the default stream,
+  Multi-HMR's first training step in a process came back with NaN in the
+  gradient of the ViT-L/14's last LayerScale (2 seeds of 2, at 896 px and
+  batch 8); a stream of its own for either, or no cuBLAS workspace
+  (``CUBLAS_WORKSPACE_CONFIG=:0:0``), cleared it.
 
 ``CAPTURES`` and ``REPLAYS`` count the captures and the forward replays;
 under a profiler each forward replay is the span ``model.smpl.graph``.
@@ -72,6 +83,13 @@ MOCAP = "mocap"  # the slot of the critic's mocap, posed under no grad
 
 # key -> _Graphs; a key's first entry is its slot, its last the model's storage
 _graphs: dict = {}
+_capture_streams: dict = {}  # device -> the captures' own stream (the module docstring)
+
+
+def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
+    if dev not in _capture_streams:
+        _capture_streams[dev] = torch.cuda.Stream(dev)
+    return _capture_streams[dev]
 
 
 def bypass(slot: Union[int, str], pose: torch.Tensor, int8: bool = False) -> Optional[str]:
@@ -95,13 +113,18 @@ def _layout(t: torch.Tensor) -> tuple:
     return tuple(t.shape), t.dtype, t.stride(), t.storage_offset(), t.device
 
 
+def _storage(model: SMPLModel) -> tuple:
+    tensors = [getattr(model, k) for k in _TENSOR_FIELDS] + ([] if model.exprdirs is None else [model.exprdirs])
+    return tuple(t.data_ptr() for t in tensors)
+
+
 def signature(slot, model: SMPLModel, beta: torch.Tensor, pose: torch.Tensor, joint_type: str,
               matrices: bool) -> tuple:
     """The key of a capture: the slot, the layout of ``beta`` and ``pose``,
     the pose's form (``matrices``: rotations, else axis-angle),
-    ``joint_type``, grad mode, and the model's tree and tensors' storage."""
-    return (slot, _layout(beta), _layout(pose), matrices, joint_type, torch.is_grad_enabled(), model.parents,
-            tuple(getattr(model, k).data_ptr() for k in _TENSOR_FIELDS))
+    ``joint_type``, grad mode, and the model's layout and tensors' storage."""
+    return (slot, _layout(beta), _layout(pose), matrices, joint_type, torch.is_grad_enabled(), model.layout,
+            _storage(model))
 
 
 def _static(t: torch.Tensor, grad: bool) -> torch.Tensor:
@@ -145,13 +168,13 @@ class _Graphs:
                     del outs
             torch.cuda.current_stream(dev).wait_stream(side)
             self.fwd = torch.cuda.CUDAGraph()
-            pool = torch.cuda.graph_pool_handle()
-            with torch.cuda.graph(self.fwd, pool=pool):
+            pool, stream = torch.cuda.graph_pool_handle(), _capture_stream(dev)
+            with torch.cuda.graph(self.fwd, pool=pool, stream=stream):
                 outs = run()
             if grad:
                 self.grad_outs = [torch.zeros_like(o) for o in outs]
                 self.bwd = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(self.bwd, pool=pool):
+                with torch.cuda.graph(self.bwd, pool=pool, stream=stream):
                     self.grads = torch.autograd.grad(outs, inputs, self.grad_outs)
             self.outs = [o.detach() for o in outs]
         self.generation = 0  # forward replays and backward replays so far

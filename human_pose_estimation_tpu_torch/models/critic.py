@@ -16,7 +16,9 @@ LEAKY_SLOPE = 0.2
 
 
 class Critic(nn.Module):
-    def __init__(self):
+    def __init__(self, rotation_joints: int = 23):
+        """``rotation_joints``: the body model's joints but the root (23
+        for SMPL, 54 for SMPL-X), whose rotations the third stream scores."""
         super().__init__()
         self.kcs_dense = nn.Linear(NUM_BONES * NUM_BONES, 100)
         self.joints_dense = nn.Linear(NUM_KCS_JOINTS * 3, 100)
@@ -24,7 +26,7 @@ class Critic(nn.Module):
         self.shapes_dense_1 = nn.Linear(10, 10)
         self.shapes_dense_2 = nn.Linear(10, 5)
         self.shapes_dense_3 = nn.Linear(5, 1)
-        self.rotation_dense_1 = nn.Linear(23 * 9, 300)
+        self.rotation_dense_1 = nn.Linear(rotation_joints * 9, 300)
         self.rotation_dense_2 = nn.Linear(300, 100)
         self.rotation_dense_3 = nn.Linear(100, 1)
 
@@ -37,7 +39,8 @@ class Critic(nn.Module):
 
     def forward(self, kcs, joints, shapes, rotations):
         """kcs (N, 13, 13), joints (N, 14, 3), shapes (N, 10), rotations
-        (N, 23, 3, 3) without the root -> (N, 3) [skeleton, shape, rotation]."""
+        (N, rotation_joints, 3, 3) without the root -> (N, 3) [skeleton,
+        shape, rotation]."""
         n = kcs.shape[0]
         lrelu = lambda x: F.leaky_relu(x, LEAKY_SLOPE)
         kcs_h = lrelu(self.kcs_dense(kcs.reshape(n, -1)))

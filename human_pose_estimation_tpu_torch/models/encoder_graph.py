@@ -51,7 +51,9 @@ What keeps the replay exact:
   does (autograd copies a gradient that another reference holds into
   ``.grad``). A backward reached after another forward replay of its
   capture, or reached twice, raises: the activations it would read are
-  gone.
+  gone;
+* the pair is captured on a stream of its own, which no other module's
+  captures share (``models/body_graph.py`` says why).
 
 ``CAPTURES`` and ``REPLAYS`` count the captures and the forward replays;
 under a profiler each forward replay is the span ``model.encoder.graph``.
@@ -73,6 +75,13 @@ WARMUP = 3  # eager forward-backward passes on a side stream before capture, as 
 
 # encoder module -> {signature: _Pair}; an entry goes with its encoder
 _pairs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_capture_streams: dict = {}  # device -> the captures' own stream (the module docstring)
+
+
+def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
+    if dev not in _capture_streams:
+        _capture_streams[dev] = torch.cuda.Stream(dev)
+    return _capture_streams[dev]
 
 
 def _tensors(encoder):
@@ -145,11 +154,11 @@ class _Pair:
                     del out
             torch.cuda.current_stream(dev).wait_stream(side)
             self.fwd, self.bwd = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
-            pool = torch.cuda.graph_pool_handle()
-            with torch.cuda.graph(self.fwd, pool=pool):
+            pool, stream = torch.cuda.graph_pool_handle(), _capture_stream(dev)
+            with torch.cuda.graph(self.fwd, pool=pool, stream=stream):
                 out = run(self.images)
             self.grad_out = torch.zeros_like(out)
-            with torch.cuda.graph(self.bwd, pool=pool):
+            with torch.cuda.graph(self.bwd, pool=pool, stream=stream):
                 self.grads = list(torch.autograd.grad(out, self.params, self.grad_out))
             self.out = out.detach()
             with torch.no_grad():

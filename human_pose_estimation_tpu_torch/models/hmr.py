@@ -1,5 +1,5 @@
-"""HMR: an encoder, a head that regresses SMPL parameters from its
-features, the body model and the weak-perspective projection. Two pairs,
+"""HMR: an encoder, a head that regresses body-model parameters from its
+features, the body model and the head's camera projection. Three pairs,
 each built by its entry of ``FAMILIES``:
 
 * ``backbone='resnet'``, ``head='ief'``: the HMR of the JAX package, a
@@ -8,7 +8,15 @@ each built by its entry of ``FAMILIES``:
   al. 2023), the ViTPose-H backbone (``models/vit.py``) and the
   transformer-decoder head (``models/transformer_head.py``), which
   regresses 6D rotations; the body model then takes rotation matrices
-  (``core.smpl``'s ``rotations``), not axis-angle.
+  (``core.smpl``'s ``rotations``), not axis-angle;
+* ``backbone='dinov2_l14'``, ``head='hph'``: Multi-HMR's model (Baradel et
+  al. 2024), DINOv2's ViT-L/14 over the whole image (``models/vit.py``'s
+  ``DINOV2`` options) and the Human Prediction Head
+  (``models/transformer_head.HumanPredictionHead``): one query per person
+  slot, SMPL-X's 6D rotations, betas and expression, a perspective
+  translation, and a detection logit per patch. Its rows are the person
+  slots, image by image, and ``forward`` takes the slots: each one's
+  centre patch and whether a person fills it.
 
 Counterpart of ``human_pose_estimation_tpu/models/hmr.py`` (the forward of
 ``HMR.__call__``). Kept from the reference:
@@ -22,8 +30,11 @@ The seam between ``HMR`` and what it composes: every encoder has
 ``draw_masks(n, generator)``, the random numbers of its train-mode forward
 drawn up front (None where it draws none: the ResNet, any eval mode), and
 ``forward(images, masks)``; every head has ``initial(mean_theta, n)``, its
-first estimate, and ``step``, one stage (the next estimate, the stage's
-theta, cam, pose and shape, and the pose the body model takes).
+first estimate, ``step``, one stage (the next estimate, the stage's
+fields: theta, cam, pose, shape and any the head adds, and the pose, and
+where it differs from the stage's shape the beta, that the body model
+takes), and ``project(points, cam)``, its camera into the [-1, 1] image
+frame. The person slots, where ``forward`` is given them, go to the head.
 ``forward`` draws the masks, runs the encoder, then ``num_stage`` head
 steps, with the body model on the stages that ``smpl_stages`` asks for.
 
@@ -50,7 +61,7 @@ slot); evaluation, serving and the CPU run it eagerly.
 The int8 serving encoder: ``HMR.quantize_encoder`` folds and quantizes the
 ResNet's weights once (``models/quantize.py``), and ``forward(...,
 encoder_qparams=...)`` runs it in eval mode in place of the float encoder.
-``remat_encoder`` and the int8 encoder refuse the ViT.
+``remat_encoder`` and the int8 encoder refuse the ViTs.
 """
 from __future__ import annotations
 
@@ -63,14 +74,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .. import at_least_f32, resolve_device
-from ..core.projection import orth_project
 from ..core.smpl import SMPLModel
 from ..utils.tracing import span
 from . import body_graph, encoder_graph
 from .regressor import IEFRegressor
 from .resnet import ResNet, make_resnet
-from .transformer_head import HMR2_HEAD, HeadShape, TransformerDecoderHead
-from .vit import VIT_H, ViT, ViTShape
+from .transformer_head import HMR2_HEAD, MHMR_HEAD, HeadShape, HumanPredictionHead, TransformerDecoderHead
+from .vit import DINOV2, VIT_H, VIT_L, ViT, ViTShape
 
 NUM_CAM = 3
 NUM_POSE = 72
@@ -90,8 +100,10 @@ class StageOutput:
     shape: torch.Tensor  # (N, 10)
     verts: Optional[torch.Tensor] = None  # (N, V, 3)
     joints3d: Optional[torch.Tensor] = None  # (N, J, 3)
-    rotations: Optional[torch.Tensor] = None  # (N, 23, 3, 3), root excluded
+    rotations: Optional[torch.Tensor] = None  # (N, 23, 3, 3), root excluded (N, 54, 3, 3) for SMPL-X
     kp2d: Optional[torch.Tensor] = None  # (N, J, 2) projected, in [-1, 1]
+    detection: Optional[torch.Tensor] = None  # (B, patches) per-patch person logits (the HPH)
+    patches: Optional[torch.Tensor] = None  # (B, K) the slots' centre patches (the HPH)
 
 
 def split_theta(theta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -124,8 +136,21 @@ def _vit_transformer(device, seed, img_size, vit_shape, head_shape, **_):
     return encoder, "head", head
 
 
+def _dinov2_hph(device, seed, img_size, vit_shape, head_shape, **_):
+    """Multi-HMR's DINOv2 ViT-L/14 and Human Prediction Head, built and
+    drawn on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.device(device):
+        encoder = ViT(img_size, vit_shape or VIT_L, DINOV2)
+        head = HumanPredictionHead(encoder.feature_dim, head_shape or MHMR_HEAD, img_size, DINOV2.patch)
+    encoder.reset_parameters(gen)
+    head.reset_parameters(gen)
+    return encoder, "head", head
+
+
 # (backbone, head) -> the builder of (encoder, the head's attribute: its state-dict prefix, head)
-FAMILIES = {("resnet", "ief"): _resnet_ief, ("vit_h", "transformer"): _vit_transformer}
+FAMILIES = {("resnet", "ief"): _resnet_ief, ("vit_h", "transformer"): _vit_transformer,
+            ("dinov2_l14", "hph"): _dinov2_hph}
 PAIRS = tuple(FAMILIES)
 
 
@@ -164,6 +189,7 @@ class HMR(nn.Module):
             raise ValueError(f"encoder_dtype must be one of {sorted(_DTYPES)}")
         if (backbone, head) not in FAMILIES:
             raise ValueError(f"(backbone, head) must be one of {PAIRS}, got {(backbone, head)}")
+        self.pair = (backbone, head)
         self.device = resolve_device(device)
         self.smpl = smpl.to(self.device)
         self.num_stage = num_stage
@@ -178,6 +204,21 @@ class HMR(nn.Module):
             raise ValueError("remat_encoder recomputes the ResNet encoder only")
         self.to(self.device)
         self.eval()
+
+    def describe(self) -> str:
+        """The model as its weights must fit it: the pair, the encoder's
+        widths and the head's, for a message."""
+        encoder = self.encoder
+        widths = (f"stage sizes {encoder.stage_sizes}" if isinstance(encoder, ResNet)
+                  else f"{tuple(encoder.shape)} at {encoder.num_tokens} tokens")
+        head = getattr(self, self._head)
+        head_widths = f", head {tuple(head.shape)}" if hasattr(head, "shape") else ""
+        return f"(backbone, head) = {self.pair}, encoder {widths}{head_widths}"
+
+    def project(self, points: torch.Tensor, cam: torch.Tensor) -> torch.Tensor:
+        """(N, P, 3) body points and a stage's (N, 3) cam -> (N, P, 2) in
+        the [-1, 1] image frame, by the head's camera."""
+        return getattr(self, self._head).project(points, cam)
 
     @classmethod
     def from_config(cls, smpl: SMPLModel, cfg, device=None, seed: int = 0, remat_encoder: bool = False) -> "HMR":
@@ -242,13 +283,21 @@ class HMR(nn.Module):
         smpl_stages: str = "all",
         encoder_qparams=None,
         generator: Optional[torch.Generator] = None,
+        slots: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> List[StageOutput]:
         """images (N, H, W, 3) in [-1, 1]; mean_theta (1, 85) initial
         estimate. Returns one StageOutput per IEF stage (per head iteration
         of the transformer head). In train mode ``generator`` (on the
         module's device) draws the ViT's stochastic-depth masks, then the
         dropout masks of the last IEF stage. ``encoder_qparams`` (from
-        ``quantize_encoder``, inference only) runs the int8 encoder."""
+        ``quantize_encoder``, inference only) runs the int8 encoder.
+        ``slots`` = (each person's centre (N, K, 2) in pixels, valid (N,
+        K)): the person slots of a head that takes them (the HPH, its
+        ``takes_slots``), whose stage rows are then the N x K slots; every
+        other head refuses them."""
+        head = getattr(self, self._head)
+        if (slots is not None) != head.takes_slots:
+            raise ValueError(f"{self.describe()}: the head takes {'' if head.takes_slots else 'no '}person slots")
         if encoder_qparams is not None and self.training:
             raise ValueError("encoder_qparams is an inference-only path")
         if smpl_stages not in ("all", "last"):
@@ -275,20 +324,20 @@ class HMR(nn.Module):
                 features = encoder_graph.encode(self, images, masks)
             else:
                 features = self._encode(images, masks)
-        head = getattr(self, self._head)
         estimate = at_least_f32(mean_theta)
         stages: List[StageOutput] = []
         for stage in range(self.num_stage):
             last = stage == self.num_stage - 1
-            estimate, (theta, cam, pose, shape), body_pose = head.step(
-                features, estimate, stage == 0, last, generator, self._autocast
+            estimate, fields, body_pose = head.step(
+                features, estimate, stage == 0, last, generator, self._autocast, slots
             )
-            out = StageOutput(theta=theta, cam=cam, pose=pose, shape=shape)
+            out = StageOutput(**fields)
             if smpl_stages == "all" or last:
                 with span("model.smpl"):
-                    body = body_graph.forward(stage, self.smpl, shape, joint_type=self.joint_type,
+                    beta = body_pose.pop("beta", out.shape)
+                    body = body_graph.forward(stage, self.smpl, beta, joint_type=self.joint_type,
                                               int8=encoder_qparams is not None, **body_pose)
-                    out.kp2d = orth_project(body.joints, cam)
+                    out.kp2d = head.project(body.joints, out.cam)
                 out.verts, out.joints3d, out.rotations = body.verts, body.joints, body.rotations[:, 1:]
             stages.append(out)
         return stages

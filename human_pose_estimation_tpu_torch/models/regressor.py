@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from .. import at_least_f32
+from ..core.projection import orth_project
 from ..parallel import mesh as pmesh
 from ..utils.tracing import span
 
@@ -23,6 +24,8 @@ DROPOUT_RATE = 0.5
 
 
 class IEFRegressor(nn.Module):
+    takes_slots = False  # its rows are the images (``HMR.forward``'s ``slots``)
+
     def __init__(self, feature_dim: int = FEATURE_DIM, dropout_rate: float = DROPOUT_RATE):
         """feature_dim: the encoder's output width (2048 for ResNet-50;
         shallow test encoders differ)."""
@@ -79,11 +82,14 @@ class IEFRegressor(nn.Module):
         """The first estimate: the (1, 85) mean theta on each of ``n`` rows."""
         return mean_theta.expand(n, -1)
 
-    def step(self, features, theta, first, last, generator, autocast):
+    project = staticmethod(orth_project)
+
+    def step(self, features, theta, first, last, generator, autocast, slots=None):
         """One IEF stage from ``theta`` (the mean theta on the ``first``):
-        (the next theta, (theta, cam, pose, shape), the body model's pose).
-        Train-mode dropout acts on the ``last`` stage only (the reference
-        quirk); ``autocast()`` covers the MLP."""
+        (the next theta, the stage's theta, cam, pose and shape, the body
+        model's pose). Train-mode dropout acts on the ``last`` stage only
+        (the reference quirk); ``autocast()`` covers the MLP. The regressor
+        takes no person slots."""
         from .hmr import split_theta  # the theta layout, where the JAX package keeps it
 
         if first:
@@ -92,4 +98,4 @@ class IEFRegressor(nn.Module):
             delta = self(features, theta, train=self.training and last, generator=generator)
         theta = theta + delta
         cam, pose, shape = split_theta(theta)
-        return theta, (theta, cam, pose, shape), {"theta": pose}
+        return theta, dict(theta=theta, cam=cam, pose=pose, shape=shape), {"theta": pose}

@@ -4,7 +4,7 @@ mesh-reprojection (bidirectional chamfer) loss, the expanded-form
 ``chamfer_loss`` and the WGAN gradient penalty."""
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -15,6 +15,7 @@ __all__ = [
     "chamfer_loss",
     "gradient_penalty",
     "keypoint_reprojection_loss",
+    "masked_mean",
     "mesh_reprojection_loss",
 ]
 
@@ -132,11 +133,22 @@ def mesh_reprojection_loss(
     return (per_image / denom).sum()
 
 
-def gradient_penalty(grads: Sequence[torch.Tensor], mode: str = "reference") -> torch.Tensor:
+def masked_mean(x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """The mean over the rows of ``x`` (R, ...) whose weight in ``rows``
+    (R,) is 1 (the valid person slots): the others count as 0 whatever they
+    hold, and the count is at least 1."""
+    keep = (rows > 0).reshape(-1, *([1] * (x.dim() - 1)))
+    return torch.where(keep, x, torch.zeros_like(x)).sum(0) / rows.sum().clamp_min(1.0)
+
+
+def gradient_penalty(grads: Sequence[torch.Tensor], mode: str = "reference",
+                     rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """WGAN-GP penalty over the critic's input gradients.
 
     ``mode='reference'``: the norm of the batch-mean gradient per input,
-    ``(1 - norm)^2``, summed over the inputs (the reference's formulation).
+    ``(1 - norm)^2``, summed over the inputs (the reference's formulation);
+    with ``rows`` (R,) the mean is over the rows of weight 1 (the valid
+    person slots: the others count as 0), in one process.
     ``mode='per_sample'``: the paper's per-sample norm over all inputs
     jointly, ``mean((1 - sqrt(sq + 1e-12))^2)``.
 
@@ -150,12 +162,14 @@ def gradient_penalty(grads: Sequence[torch.Tensor], mode: str = "reference") -> 
     if mode == "reference":
         total = torch.zeros((), dtype=grads[0].dtype, device=grads[0].device)
         for g in grads:
-            mean_g = g.mean(dim=0)
+            mean_g = g.mean(dim=0) if rows is None else masked_mean(g, rows)
             if pmesh.is_distributed():  # the global batch's mean: equal counts per rank
                 mean_g = pmesh.global_sum(mean_g) / pmesh.world_size()
             total = total + (1.0 - torch.linalg.vector_norm(mean_g.reshape(-1))) ** 2
         return total / pmesh.world_size() if pmesh.is_distributed() else total
     if mode == "per_sample":
+        if rows is not None:
+            raise NotImplementedError("the per-sample penalty weighs every row")
         n = grads[0].shape[0]
         sq = torch.zeros(n, dtype=grads[0].dtype, device=grads[0].device)
         for g in grads:

@@ -171,13 +171,13 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 def create_train_state(smpl, mean_theta, cfg: Config, device=None, seed: int = 0) -> TrainState:
     """A fresh state from a seed: the HMR (``HMR.from_config``, with
-    ``remat_encoder``) and the critic with the JAX package's
-    initialisers, the mean theta as a trainable (1, 85) parameter, and the
+    ``remat_encoder``) and the critic (scoring the rotations of the body
+    model's joints) with the JAX package's initialisers, the mean theta as a trainable (1, 85) parameter, and the
     optimizers of ``make_optimizers``. Runs on ``cuda`` unless ``device``
     says otherwise. Under a process group every rank then holds rank 0's
     state (``parallel.mesh.replicate``)."""
     hmr = HMR.from_config(smpl, cfg, device=device, seed=seed, remat_encoder=cfg.remat_encoder)
-    critic = Critic()
+    critic = Critic(rotation_joints=smpl.layout.num_joints - 1)
     critic.reset_parameters(torch.Generator().manual_seed(seed + 1))
     critic.to(hmr.device)
     mean = nn.Parameter(torch.as_tensor(mean_theta, dtype=torch.float32).reshape(1, -1).to(hmr.device).clone())

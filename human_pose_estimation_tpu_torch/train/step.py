@@ -24,18 +24,31 @@ returned metrics and losses are the global batch's on every rank. The
 critic pairs fake row i with mocap row i of the same rank: a rank's mocap
 batch holds the rows of the global one that ``parallel.mesh.row_index``
 gives it (blocks of ``num_stage``).
+
+The person-slot layout (a head whose ``takes_slots`` is set, Multi-HMR's
+HPH; the fused step is handed ``CrowdHostBatch``es): each batch is B whole images with K person slots each (``SlotBatch``: the
+per-slot labels and silhouettes, each slot's person centre and whether a
+person fills it), and the model's rows are the B x K slots. The keypoint
+loss counts the valid slots' visible keypoints only (a padded slot's are
+hidden); the silhouette loss, the critic's scores, its WGAN margin and
+the penalty's mean gradient are means over the valid slots (a padded
+slot's weight is 0, so that what it holds changes nothing); and a
+detection loss, the binary cross-entropy of the per-patch person logits
+against the patches that hold a valid slot's centre, joins the
+generator's loss (``gen.detect``). The means are the process's own: the
+layout runs in one process.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from .. import resolve_device
 from ..config import Config
-from ..core.projection import reproject_to_pixels
 from ..models import body_graph
 from ..ops import kcs as K
 from ..ops import losses as L
@@ -51,6 +64,34 @@ class GenBatch(NamedTuple):
     seg_points: torch.Tensor  # (N, P, 2) padded silhouette pixel coords [x, y]
     seg_mask: torch.Tensor  # (N, P)
     kp2d: torch.Tensor  # (N, 19, 3) [x, y, vis] in [-1, 1]
+
+
+class SlotBatch(NamedTuple):
+    """One step of whole images with K person slots each (B images)."""
+
+    images: torch.Tensor  # (B, H, W, 3) in [-1, 1]
+    seg_points: torch.Tensor  # (B*K, P, 2) each slot's silhouette pixels [x, y]
+    seg_mask: torch.Tensor  # (B*K, P), 0 in a padded slot
+    kp2d: torch.Tensor  # (B*K, 19, 3) [x, y, vis] in [-1, 1], hidden in a padded slot
+    centers: torch.Tensor  # (B, K, 2) each person's centre in pixels [x, y]
+    valid: torch.Tensor  # (B, K) 1 where a person fills the slot
+
+    @property
+    def slots(self):
+        """What the model takes: (centres, valid)."""
+        return self.centers, self.valid
+
+
+class CrowdHostBatch(NamedTuple):
+    """Whole images with up to K people each, as a host pipeline hands
+    them over (numpy arrays or (pinned) CPU tensors); the fused step copies
+    them to the device and augments them there."""
+
+    image: torch.Tensor  # (B, S, S, 3) uint8
+    seg: torch.Tensor  # (B, S, S) uint8, bit k: slot k's silhouette
+    center: torch.Tensor  # (B, K, 2) int32 each person's centre [x, y]
+    label: torch.Tensor  # (B, K, 3, 19) keypoint rows [x, y, vis]
+    present: torch.Tensor  # (B, K) uint8, 1 where a person fills the slot
 
 
 class HostBatch(NamedTuple):
@@ -76,10 +117,12 @@ class MocapBatch(NamedTuple):
 
 @torch.no_grad()
 def mocap_batch(smpl, pose: torch.Tensor, shape: torch.Tensor) -> MocapBatch:
-    """Real critic samples from mocap ``pose`` (M, 72) and ``shape`` (M, 10)
-    on the body model's device: one batched body-model forward with the 19
-    cocoplus joints, the rotations without the root; on the card a replay
-    of the forward graph of ``body_graph.MOCAP``'s slot."""
+    """Real critic samples from mocap ``pose`` (M, 3J) axis-angle (J the body
+    model's joints: 72 numbers for SMPL) and ``shape`` (M, 10) on the body
+    model's device: one batched body-model forward with the 19 cocoplus
+    joints (a neutral expression where the model has one), the rotations
+    without the root; on the card a replay of the forward graph of
+    ``body_graph.MOCAP``'s slot."""
     out = body_graph.forward(body_graph.MOCAP, smpl, shape, pose, joint_type="cocoplus")
     return MocapBatch(joints=out.joints, shapes=shape, rotations=out.rotations[:, 1:])
 
@@ -94,6 +137,7 @@ class StepMetrics:
     critic_penalty: torch.Tensor
     bone_length_pred: torch.Tensor
     bone_length_gt: torch.Tensor
+    detection_loss: torch.Tensor  # the detection loss; 0 without person slots
 
 
 @contextlib.contextmanager
@@ -110,10 +154,23 @@ def _mode(training: bool, *modules):
             m.train(was)
 
 
-def _stage_losses(stages, batch: GenBatch, critic, c_matrix, cfg: Config):
-    """Per-stage (kpr, mr, critic) losses, each stacked to (num_stage,)."""
+def _valid_rows(batch) -> Optional[torch.Tensor]:
+    """The (B*K,) weights of a ``SlotBatch``'s rows, 1 for a valid slot and
+    0 for a padded one; None for a batch of one person an image."""
+    valid = getattr(batch, "valid", None)
+    if valid is None:
+        return None
+    if pmesh.is_distributed():
+        raise NotImplementedError("the person-slot layout's means are one process's")
+    return valid.reshape(-1)
+
+
+def _stage_losses(stages, batch: GenBatch, critic, c_matrix, cfg: Config, project):
+    """Per-stage (kpr, mr, critic) losses, each stacked to (num_stage,).
+    ``project`` is the model's camera (``HMR.project``)."""
     kpr, mr, gcl = [], [], []
     zero = torch.zeros((), device=batch.kp2d.device)
+    rows = _valid_rows(batch)
     for i, s in enumerate(stages):
         # labels carry 19 cocoplus points; a 14-joint LSP head compares the
         # first 14 (the face points have zero visibility on LSP data)
@@ -122,19 +179,18 @@ def _stage_losses(stages, batch: GenBatch, critic, c_matrix, cfg: Config):
         # mr_metric_stages='last' skips the early stages' chamfer entirely
         mr_wanted = cfg.mr_metric_stages == "all" or i == len(stages) - 1
         if cfg.use_mesh_repro_loss and mr_wanted:
-            sil_pred = reproject_to_pixels(s.verts, s.cam, float(cfg.img_size))
-            mr.append(
-                cfg.mr_loss_weight
-                * L.mesh_reprojection_loss(
-                    batch.seg_points, batch.seg_mask, sil_pred, scale_mode=cfg.mr_scale_mode
-                )
-            )
+            sil_pred = (project(s.verts, s.cam) + 1.0) * 0.5 * float(cfg.img_size)
+            loss = L.mesh_reprojection_loss(batch.seg_points, batch.seg_mask, sil_pred, scale_mode=cfg.mr_scale_mode)
+            if rows is not None:  # a padded slot's mask is empty: its term is 0
+                loss = loss / rows.sum().clamp_min(1.0)
+            mr.append(cfg.mr_loss_weight * loss)
         else:
             mr.append(zero)
         if not cfg.encoder_only:
             with span("critic.score"):
                 scores = critic(K.kcs(s.joints3d, c_matrix), s.joints3d[:, :14], s.shape, s.rotations)
-            gcl.append(cfg.critic_loss_weight * -pmesh.mean_share(scores, 0).sum())
+            mean = pmesh.mean_share(scores, 0) if rows is None else L.masked_mean(scores, rows)
+            gcl.append(cfg.critic_loss_weight * -mean.sum())
         else:
             gcl.append(zero)
     return torch.stack(kpr), torch.stack(mr), torch.stack(gcl)
@@ -159,8 +215,9 @@ def make_val_step(hmr, critic, cfg: Config, return_stages: bool = False):
         # eval mode whatever a training step left: running BN statistics,
         # no dropout (the JAX step passes train=False)
         with _mode(False, hmr, critic):
-            stages = hmr(batch.images, mean_theta, smpl_stages="all", encoder_qparams=encoder_qparams)
-            kpr, mr, gcl = pmesh.global_sums(_stage_losses(stages, batch, critic, c_matrix, cfg))
+            stages = hmr(batch.images, mean_theta, smpl_stages="all", encoder_qparams=encoder_qparams,
+                         slots=getattr(batch, "slots", None))
+            kpr, mr, gcl = pmesh.global_sums(_stage_losses(stages, batch, critic, c_matrix, cfg, hmr.project))
         last = stages[-1]
         out = dict(
             kpr_losses=kpr,
@@ -231,9 +288,10 @@ def _step_body(cfg: Config, dev: torch.device):
 
     def generator_loss(state: TrainState, batch: GenBatch, generator):
         with span("gen.forward"), _mode(True, state.hmr):
-            stages = state.hmr(batch.images, state.mean_theta, smpl_stages="all", generator=generator)
+            stages = state.hmr(batch.images, state.mean_theta, smpl_stages="all", generator=generator,
+                               slots=getattr(batch, "slots", None))
         with span("gen.losses"):
-            kpr, mr, gcl = _stage_losses(stages, batch, state.critic, c_matrix, cfg)
+            kpr, mr, gcl = _stage_losses(stages, batch, state.critic, c_matrix, cfg, state.hmr.project)
             loss = torch.zeros((), device=dev)
             if cfg.use_kpr_loss:
                 loss = loss + kpr[-1]
@@ -246,15 +304,27 @@ def _step_body(cfg: Config, dev: torch.device):
                 # the mirrored s < 0 gauge; zero whenever s >= margin
                 s = stages[-1].cam[:, 0]
                 loss = loss + cfg.cam_scale_hinge * pmesh.mean_share(torch.relu(cfg.cam_scale_margin - s).square())
-        return loss, stages, (kpr, mr, gcl)
+        detection = torch.zeros((), device=dev)
+        last = stages[-1]
+        if last.detection is not None:
+            with span("gen.detect"):
+                # 1 at each patch that holds a valid slot's centre
+                target = torch.zeros_like(last.detection).scatter_reduce_(
+                    1, last.patches, batch.valid.to(last.detection.dtype), "amax")
+                detection = F.binary_cross_entropy_with_logits(last.detection, target)
+            loss = loss + detection
+        return loss, stages, (kpr, mr, gcl, detection)
 
-    def critic_loss(critic, fakes, real: MocapBatch, generator) -> Tuple[torch.Tensor, torch.Tensor]:
+    def critic_loss(critic, fakes, real: MocapBatch, generator, rows) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The WGAN-GP loss on the fakes against ``real``; ``rows`` weighs
+        the fakes' rows (the valid slots'), None for every row."""
         fake_joints, fake_shapes, fake_rs = fakes
         real_joints = real.joints[:, :14]
         real_out = critic(K.kcs(real_joints, c_matrix), real_joints, real.shapes, real.rotations)
         fake_out = critic(K.kcs(fake_joints, c_matrix), fake_joints, fake_shapes, fake_rs)
         # WGAN loss: the sum over the 3 heads of the batch-mean margin
-        wgan = pmesh.mean_share(fake_out - real_out, 0).sum()
+        margin = fake_out - real_out
+        wgan = (pmesh.mean_share(margin, 0) if rows is None else L.masked_mean(margin, rows)).sum()
         penalty = torch.zeros((), device=dev)
         if cfg.use_gradient_penalty:
             # drawn for the global batch's fakes (empty stand-ins of its
@@ -277,7 +347,7 @@ def _step_body(cfg: Config, dev: torch.device):
             with span("critic.penalty"):
                 out = critic(i_kcs, i_joints[:, :14], i_shapes, i_rs)
                 grads = torch.autograd.grad(out.sum(), inputs, create_graph=True)
-                penalty = L.gradient_penalty(grads, mode=cfg.gp_mode)
+                penalty = L.gradient_penalty(grads, mode=cfg.gp_mode, rows=rows)
             wgan = wgan + 10.0 * penalty
         return wgan, penalty
 
@@ -285,7 +355,9 @@ def _step_body(cfg: Config, dev: torch.device):
         state: TrainState, batch: GenBatch, mocap: Optional[MocapBatch], generator: Optional[torch.Generator]
     ) -> StepMetrics:
         # ------------------------- generator update -----------------------
-        gen_loss, stages, (kpr, mr, gcl) = generator_loss(state, batch, generator)
+        gen_loss, stages, (kpr, mr, gcl, detection) = generator_loss(state, batch, generator)
+        rows = _valid_rows(batch)
+        rows = None if rows is None else rows.repeat(len(stages))  # the fakes: every stage's rows
         gen_params = state.gen_params()
         with span("gen.backward"):
             grads = torch.autograd.grad(gen_loss, gen_params, allow_unused=True)
@@ -303,7 +375,7 @@ def _step_body(cfg: Config, dev: torch.device):
             c_loss, penalty = zero, zero
         else:
             with span("critic.forward"):
-                c_loss, penalty = critic_loss(state.critic, (fake_joints, fake_shapes, fake_rs), mocap, generator)
+                c_loss, penalty = critic_loss(state.critic, (fake_joints, fake_shapes, fake_rs), mocap, generator, rows)
             c_params = list(state.critic.parameters())
             with span("critic.backward"):
                 c_grads = pmesh.all_reduce_grads(c_params, torch.autograd.grad(c_loss, c_params, allow_unused=True))
@@ -312,7 +384,8 @@ def _step_body(cfg: Config, dev: torch.device):
 
         state.step += 1
         with span("step.metrics"), torch.no_grad():
-            bone_pred = pmesh.mean_share(K.bone_lengths_sq(fake_joints, c_matrix).sum(dim=1))
+            bones = K.bone_lengths_sq(fake_joints, c_matrix).sum(dim=1)
+            bone_pred = pmesh.mean_share(bones) if rows is None else L.masked_mean(bones, rows)
             # a metric, not a critic input: computed whenever mocap is given
             bone_gt = (
                 pmesh.mean_share(K.bone_lengths_sq(mocap.joints[:, :14], c_matrix).sum(dim=1))
@@ -320,7 +393,7 @@ def _step_body(cfg: Config, dev: torch.device):
                 else zero
             )
             # the ranks' shares summed into the global batch's values
-            fields = pmesh.global_sums((kpr, mr, gcl, gen_loss, c_loss, penalty, bone_pred, bone_gt))
+            fields = pmesh.global_sums((kpr, mr, gcl, gen_loss, c_loss, penalty, bone_pred, bone_gt, detection))
         return StepMetrics(*(t.detach() for t in fields))
 
     return step
@@ -334,25 +407,29 @@ def make_fused_train_step(cfg: Config, smpl, augment: bool = True, device=None):
     ``host`` is a ``HostBatch``: it is copied to the device (through pinned
     memory, without blocking the host), augmented with draws from
     ``generator`` and turned into silhouettes (``data.pipeline.
-    DevicePreprocessor``); ``mocap_raw=(pose (M, 72), shape (M, 10))``, or
+    DevicePreprocessor``); a ``CrowdHostBatch``, for a model whose head
+    takes person slots, is made a ``SlotBatch`` by ``data.pipeline.
+    SlotPreprocessor``; ``mocap_raw=(pose (M, 3J), shape (M, 10))``, or
     None, is posed by one batched body-model forward into a ``MocapBatch``;
     then ``make_train_step``'s step runs on the same generator. The
     augmentation draws first, so the step equals ``DevicePreprocessor``
     followed by ``make_train_step`` on one generator. Runs on ``cuda`` unless
     ``device`` says otherwise."""
     # data.pipeline imports this module (GenBatch)
-    from ..data.pipeline import DevicePreprocessor, to_device
+    from ..data.pipeline import DevicePreprocessor, SlotPreprocessor, to_device
 
     dev = resolve_device(device)
     # the augmentation draws for the global batch under a process group
-    prep = DevicePreprocessor(cfg, augment=augment, device=dev, global_draws=True)
+    crop_prep, slot_prep = (p(cfg, augment=augment, device=dev, global_draws=True)
+                            for p in (DevicePreprocessor, SlotPreprocessor))
     body = smpl.to(dev)
     base = _step_body(cfg, dev)
 
     def fused(
-        state: TrainState, host: HostBatch, mocap_raw: Optional[Tuple], generator: Optional[torch.Generator]
+        state: TrainState, host: Union[HostBatch, CrowdHostBatch], mocap_raw: Optional[Tuple], generator: Optional[torch.Generator]
     ) -> StepMetrics:
         with span("step"):
+            prep = slot_prep if isinstance(host, CrowdHostBatch) else crop_prep
             batch = prep(host._asdict(), generator)
             mocap = None
             if mocap_raw is not None:

@@ -37,7 +37,10 @@ stage):
           model.ief     per stage, the IEF regressor
           model.head    per iteration, HMR 2.0's transformer-decoder head
                         and its 6D-to-matrix map, in place of model.ief
-                        (the encoder is then the ViT)
+                        (the encoder is then the ViT); or Multi-HMR's
+                        Human Prediction Head over the person slots
+            model.camera  the HPH's camera-ray embedding
+            model.queries the HPH's gather of the slots' person tokens
           model.smpl    per stage, the body model and the projection
             model.smpl.graph  the body model's forward replayed as a
                         CUDA graph (models/body_graph.py; the backward
@@ -45,6 +48,7 @@ stage):
         gen.losses      the per-stage losses
           chamfer.k2    each silhouette chamfer with its gradient (K2)
           critic.score  per stage, the critic on the stage's fakes
+          gen.detect    the person-slot layout's detection loss
         gen.backward    the generator's gradients and their all-reduce
         gen.adam        the generator's update
         critic.forward  the critic's WGAN loss

@@ -14,12 +14,20 @@ mode and rebound tensors; a static input copies its caller's layout.
 On a card (``cuda``): over three slots in one forward, the replayed
 outputs against eager bit for bit in both pose forms at N = 8 and 48, and
 the input gradients (bit for bit in the axis-angle form, to rtol 1e-6 in
-the matrix form); the mocap's forward-only graph against eager; a stale
-backward raises; a rebound model recaptures; three fused training steps of
-each cell's model, graphed, against eager. The file imports nothing of
-JAX, so it runs on the card's machine as it is.
+the matrix form); the mocap's forward-only graph against eager; SMPL-X's 55 joints
+and expression at 48 person slots, replayed against eager the same way
+(the mocap's forward too); the captures take a stream of their own; a
+stale backward raises; a rebound model recaptures; three fused training steps of
+each cell's model, graphed, against eager; and Multi-HMR's cell at full
+size, a fresh process's first step, with every first gradient finite.
+The file imports nothing of JAX, so it runs on the card's machine as it
+is.
 """
 import dataclasses
+import json
+import os
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -27,7 +35,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from human_pose_estimation_tpu_torch.core.rotations import rot6d_to_rotmat
 from human_pose_estimation_tpu_torch.core.smpl import _TENSOR_FIELDS, smpl_forward
-from human_pose_estimation_tpu_torch.models import body_graph
+from human_pose_estimation_tpu_torch.models import body_graph, encoder_graph
 from human_pose_estimation_tpu_torch.models.hmr import HMR
 from human_pose_estimation_tpu_torch.models.transformer_head import HeadShape
 from human_pose_estimation_tpu_torch.models.vit import ViTShape
@@ -393,3 +401,115 @@ def test_three_fused_steps_graphed_match_eager(cell, monkeypatch, tmp_path):
     print(f"{cell} steps: graph-eager {graph} | eager-eager {eager} | graph-plain eager {gaps('graphed', 'plain')}")
     for k in graph:
         assert graph[k] <= eager[k], (k, graph[k], eager[k])
+
+
+NONFINITE = "non-finite first gradients: "
+
+
+def _first_step_nonfinite(seed: int) -> list:
+    """The leaves whose first gradient is not finite after this process's
+    first training step of Multi-HMR's cell at full size, on the cell's
+    seeded weights and inputs."""
+    from portbench import harness as H
+    from portbench import weights_mhmr as WM
+    from portbench.glue import Feed, load_weights
+
+    from human_pose_estimation_tpu_torch.train.step import CrowdHostBatch
+    from human_pose_estimation_tpu_torch.train.trainer import Trainer
+
+    dev = torch.device("cuda")
+    drv = H.load_module("drivers", "train_mhmr")
+    _, cfg, wl = H.cell(H.benchmark(), "mhmr-train-b8")
+    hmr_sd, mean, critic_sd, body, host, raw = drv._inputs(cfg, wl["traffic"], seed, dev)
+    as_t = lambda a: torch.from_numpy(a).pin_memory()  # noqa: E731
+    data = Feed([(CrowdHostBatch(*(as_t(h[k]) for k in drv._HOST)), cfg["batch_size"]) for h in host])
+    t = Trainer(drv.model_config(cfg, seed), dataset=data, mocap_dataset=Feed([(as_t(p), as_t(s)) for p, s in raw]),
+                smpl=WM.program_body(body, dev), device=dev)
+    load_weights(t.state, hmr_sd, mean, critic_sd)
+    t.train(max_steps=1)
+    first = H.load_module("drivers", "train")._first_grads(t.state)
+    return [k for k, v in first.items() if not torch.isfinite(v).all()]
+
+
+@pytest.mark.cuda
+def test_the_mhmr_cells_first_step_gives_finite_gradients():
+    """Multi-HMR's cell at full size (24 blocks over 4097 tokens, 8 images,
+    48 slots), a fresh process's first step: every first gradient finite.
+    With the encoder pair and the body model captured on one stream this
+    seed's last-block LayerScale gradient came back NaN (the captures'
+    streams, ``models/body_graph.py``)."""
+    _card()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, (root, os.environ.get("PYTHONPATH"))))}
+    out = subprocess.run([sys.executable, __file__, "1618033988749"], capture_output=True, text=True, timeout=900,
+                         cwd=root, env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert json.loads(out.stdout.rsplit(NONFINITE, 1)[1]) == []
+
+
+@pytest.mark.cuda
+def test_smplx_replays_match_eager_at_48_slots():
+    """SMPL-X (55 joints, 10,475 vertices, the betas and the expression in
+    one beta (48, 20)) in the matrix form the person-slot head gives it,
+    over the capturing call and a replay: the outputs against eager bit for
+    bit, the gradients bit for bit against the regrouped eager and to 1e-6
+    against plain eager; then the mocap's axis-angle forward (a neutral
+    expression) against eager."""
+    from portbench import weights_mhmr as WM
+
+    dev = _card()
+    model = WM.program_body(WM.make_body({"num_verts": 10475, "num_betas": 10, "num_expression": 10}, 0, dev), dev)
+    assert model.layout.num_joints == 55 and model.layout.num_expression == 10
+    captures = body_graph.CAPTURES
+    for call in range(2):
+        runs = {}
+        for name, fn in (("graphed", body_graph.forward), ("eager", _regrouped),
+                         ("plain", lambda slot, *a, **k: smpl_forward(*a, **k))):
+            g = torch.Generator().manual_seed(call)
+            beta = (0.3 * torch.randn(48, 20, generator=g)).to(dev).requires_grad_()
+            x6d = torch.randn(48, 55, 6, generator=g).to(dev).requires_grad_()
+            out = fn(0, model, beta, None, joint_type="lsp", rotations=rot6d_to_rotmat(x6d))
+            runs[name] = ([beta, x6d], out)
+        grads = {}
+        for name, (leaves, out) in runs.items():
+            assert _equal(out, runs["plain"][1]), (name, call)
+            g = torch.Generator().manual_seed(call)
+            w = [torch.randn(t.shape, generator=g).to(dev) for t in (out.verts, out.joints, out.rotations[:, 1:])]
+            loss = (out.verts * w[0]).sum() + (out.joints * w[1]).sum() + (out.rotations[:, 1:] * w[2]).sum()
+            grads[name] = torch.autograd.grad(loss, leaves)
+        regrouped = [_rel(a, b) for a, b in zip(grads["graphed"], grads["eager"])]
+        plain = [_rel(a, b) for a, b in zip(grads["graphed"], grads["plain"])]
+        print(f"SMPL-X N=48 call {call}: gradient gaps to the regrouped {regrouped}, to plain eager {plain}")
+        assert regrouped == [0.0, 0.0] and max(plain) <= 1e-6, (regrouped, plain)
+    assert body_graph.CAPTURES == captures + 1
+    g = torch.Generator().manual_seed(5)
+    pose, shape = (0.2 * torch.randn(48, 165, generator=g)).to(dev), (0.4 * torch.randn(48, 10, generator=g)).to(dev)
+    mocap = tstep.mocap_batch(model, pose, shape)
+    with torch.no_grad():
+        want = smpl_forward(model, shape, pose, "cocoplus")
+    assert torch.equal(mocap.joints, want.joints) and torch.equal(mocap.rotations, want.rotations[:, 1:])
+
+
+@pytest.mark.cuda
+def test_the_captures_take_a_stream_of_their_own(monkeypatch):
+    """Every capture (forward and backward) runs on the module's own capture
+    stream, neither on ``torch.cuda.graph``'s shared default one nor on the
+    encoder graph pair's (``models/body_graph.py`` says why)."""
+    dev = _card()
+    streams, real = [], torch.cuda.graph
+
+    def graph(cuda_graph, pool=None, stream=None, **kw):
+        streams.append(stream)
+        return real(cuda_graph, pool=pool, stream=stream, **kw)
+
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    model = synthetic_model(num_verts=120, seed=0).to(dev)
+    _, beta, pose = _inputs(4, "theta", dev, seed=3)
+    body_graph.forward(5, model, beta, joint_type="lsp", **pose)
+    own = body_graph._capture_stream(beta.device)
+    assert len(streams) == 2 and all(s is own for s in streams)
+    assert own is not real.default_capture_stream and own is not encoder_graph._capture_stream(beta.device)
+
+
+if __name__ == "__main__":  # one fresh process of test_the_mhmr_cells_first_step_gives_finite_gradients
+    print(NONFINITE + json.dumps(_first_step_nonfinite(int(sys.argv[1]))))

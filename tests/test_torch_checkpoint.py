@@ -267,5 +267,6 @@ def test_predictor_restored_from_jax_checkpoint_matches_jax(jax_checkpoint, tiny
 
 def test_predictor_refuses_weights_of_another_encoder(jax_checkpoint):
     cfg = _cfg(checkpoint_dir=jax_checkpoint, encoder_stage_sizes="1,1,2,1")
-    with pytest.raises(RuntimeError, match=r"do not fit the configured encoder \(encoder_stage_sizes='1,1,2,1'\)"):
+    with pytest.raises(RuntimeError, match=r"do not fit the configured model, \(backbone, head\) = \('resnet', 'ief'\), "
+                       r"encoder stage sizes \(1, 1, 2, 1\)"):
         Predictor(cfg, smpl=synthetic_model(num_verts=120, seed=0), device="cpu")

@@ -11,14 +11,16 @@ and the encoder's features and BatchNorm statistics through
 ``HMR.forward`` equal the bare encoder's.
 
 On a card (``cuda``): the graphed forward and every parameter gradient
-against eager ResNet-50 at batch 8 and 32; capture leaves every parameter
+against eager ResNet-50 at batch 8 and 32; the pair takes a capture stream
+of its own; capture leaves every parameter
 and buffer as it found it; ``.backward()`` accumulates as eager does;
 three fused training steps graphed against eager; and a restored
 checkpoint or rebound weights recapture. The same for a small ViT with
 stochastic depth (heads of 80 over ViT-H's 192 tokens, masks drawn up
 front from the step's generator): features, gradients and the generator's
 state against eager, capture leaving the parameters and the generators as
-it found them, three fused HMR 2.0 steps, and rebound weights. The file
+it found them, three fused HMR 2.0 steps, and rebound weights; and
+Multi-HMR's ViT-L/14 at 896 px (4097 tokens) against eager. The file
 imports nothing of JAX, so it runs on the card's machine as it is.
 """
 import contextlib
@@ -269,6 +271,29 @@ def test_graphed_forward_and_gradients_match_eager_resnet50(batch):
         for k, (graph_gap, eager_gap) in gaps.items():
             assert graph_gap <= eager_gap, (k, graph_gap, eager_gap)
     assert encoder_graph.CAPTURES == captures + 1
+
+
+@pytest.mark.cuda
+def test_the_pair_is_captured_on_a_stream_of_its_own(monkeypatch):
+    """Both captures run on the module's own stream, not on
+    ``torch.cuda.graph``'s shared default one (``models/body_graph.py``
+    says why)."""
+    dev = _card()
+    streams, real = [], torch.cuda.graph
+
+    def graph(cuda_graph, pool=None, stream=None, **kw):
+        streams.append(stream)
+        return real(cuda_graph, pool=pool, stream=stream, **kw)
+
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    hmr = _hmr(dev, encoder_dtype="bfloat16")
+    hmr.train()
+    params, buffers = encoder_graph._tensors(hmr.encoder)
+    x = _images(4, IMG, dev)
+    encoder_graph._Pair(hmr, x, params, buffers)
+    own = encoder_graph._capture_stream(x.device)
+    assert len(streams) == 2 and all(s is own for s in streams)
+    assert own is not real.default_capture_stream
 
 
 @pytest.mark.cuda
@@ -566,3 +591,43 @@ def test_rebound_vit_weights_recapture():
     f = encoder_graph.encode(hmr, x, hmr.encoder.draw_masks(4, _step_gen(dev, 8)))
     assert encoder_graph.CAPTURES == captures + 2
     assert _rel(f, eager._encode(x, eager.encoder.draw_masks(4, _step_gen(dev, 8)))) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# Multi-HMR's DINOv2 ViT-L/14 on the card: 4097 tokens, no stochastic depth
+
+VIT_L = ViTShape(depth=24, width=1024, heads=16, mlp=4096)  # ViT-L/14, heads of 64
+VIT_L_IMG = 896  # 64 x 64 patches and the class token
+
+
+@pytest.mark.cuda
+def test_graphed_forward_and_gradients_match_eager_vit_l14():
+    """The ViT-L/14 in bf16, train mode, at 896 px (4097 tokens): the graph
+    pair's features and parameter gradients against eager on copies of the
+    same weights over three calls (the capturing one and two replays),
+    each gap within that of two eager runs: bit-equal where eager repeats
+    itself; it draws no masks."""
+    dev = _card()
+    graphed = HMR(synthetic_model(num_verts=120, seed=0), backbone="dinov2_l14", head="hph", img_size=VIT_L_IMG,
+                  vit_shape=VIT_L, head_shape=HEAD, encoder_dtype="bfloat16", device=dev, seed=1)
+    models = {"graphed": graphed, "eager": copy.deepcopy(graphed), "again": copy.deepcopy(graphed)}
+    for m in models.values():
+        m.train()
+    assert graphed.encoder.draw_masks(2, _step_gen(dev)) is None
+    captures = encoder_graph.CAPTURES
+    for call in range(3):
+        x = _images(2, VIT_L_IMG, dev, seed=call)
+        assert encoder_graph.bypass(graphed, x) is None
+        g_out = torch.randn(2, 4097, VIT_L.width, generator=torch.Generator().manual_seed(call)).to(dev)
+        outs = {}
+        for name, m in models.items():
+            params = list(m.encoder.parameters())
+            f = encoder_graph.encode(m, x, None) if name == "graphed" else m._encode(x, None)
+            outs[name] = (f.detach(), torch.autograd.grad(f, params, g_out))
+        (fg, gg), (fe, ge), (fa, ga) = outs["graphed"], outs["eager"], outs["again"]
+        assert fg.shape == (2, 4097, VIT_L.width)
+        gaps = {"features": (_rel(fg, fe), _rel(fa, fe)),
+                "gradient": (max(_rel(a, b) for a, b in zip(gg, ge)), max(_rel(a, b) for a, b in zip(ga, ge)))}
+        print(f"ViT-L/14 call {call}: graph-eager | eager-eager", gaps)
+        _assert_within_eager(gaps)
+    assert encoder_graph.CAPTURES == captures + 1

@@ -39,8 +39,9 @@ TREE = {
     "loop.fetch": ("loop.iter", 1), "loop.log": ("loop.iter", 1),
 }
 # documented spans of another model's path: HMR 2.0's head in place of
-# model.ief (tests/test_torch_hmr2.py counts them)
-OTHER_PATHS = {"model.head"}
+# model.ief (tests/test_torch_hmr2.py counts them), and Multi-HMR's head and
+# detection loss on person slots (tests/test_torch_multihmr.py counts them)
+OTHER_PATHS = {"model.head", "model.camera", "model.queries", "gen.detect"}
 
 
 @pytest.fixture(autouse=True, scope="module")
